@@ -1,0 +1,120 @@
+// flash_expand — one fused beam-expansion step, written for Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/flash_expand.py::flash_expand_pallas
+// (body _flash_expand_kernel), batched over Q queries as the port's beam
+// search runs it:
+//     rows[q, w, j] = adjacency[max(nodes[q, w], 0), j]
+//     sums[q, w, j] = Σ_m adt[q, m, code_m]
+// with the codes of mirror[max(nodes[q, w], 0), j] — packed (n, R, ⌈M/2⌉)
+// uint8 (low nibble = even subspace) or unpacked (n, R, M) int32 — and adt
+// (Q, M, K) int32 levels or float32.
+//
+// What bounds it on the H100: bytes, and at search batch sizes latency.
+// Per frontier vertex it reads one adjacency row (R·4 = 128 B) and one
+// packed code row (R·⌈M/2⌉ = 256 B at R = 32, M = 16), rows that sit at
+// random places in device memory; per query the 1 KiB table once.
+//
+// Design: one block per (query, group of frontier vertices). The block
+// stages adt[q] in shared memory; thread j of a frontier vertex reads
+// adjacency[node, j] and its code row — Mp = 8 bytes at M = 16, one 8-byte
+// load — unpacks the nibbles in registers and sums M shared-memory
+// lookups. The TPU kernel gathered through scalar-prefetched BlockSpecs and
+// contracted a one-hot on the MXU; here each thread gathers its own row
+// and a lookup is one shared-memory load. A packed mirror is read only as
+// 8-byte words, so it needs M % 16 == 0 (the wrapper raises otherwise).
+
+#include "flash_common.cuh"
+
+enum MirrorLayout { kUnpacked = 0, kPackedWords = 1 };
+
+template <typename T, int LAYOUT>
+__global__ void flash_expand_kernel(const int32_t* __restrict__ nodes,
+                                    const int32_t* __restrict__ adj,
+                                    const void* __restrict__ mirror,
+                                    const T* __restrict__ adt,
+                                    int32_t* __restrict__ rows_out,
+                                    T* __restrict__ sums_out, int W, int R,
+                                    int Mp, int M, int K, int w_per_block,
+                                    int n_wblk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* table = reinterpret_cast<T*>(smem_raw);
+  const int64_t q = blockIdx.x / n_wblk;
+  const int w0 = (blockIdx.x % n_wblk) * w_per_block;
+  repro_flash::stage_table(table, adt + q * (int64_t)M * K, M * K);
+  const int slots = w_per_block * R;
+  for (int s = threadIdx.x; s < slots; s += blockDim.x) {
+    const int w = w0 + s / R;
+    const int j = s % R;
+    if (w >= W) continue;
+    const int64_t out_i = (q * W + w) * (int64_t)R + j;
+    const int node = nodes[q * W + w];
+    const int64_t slot = (int64_t)(node > 0 ? node : 0) * R + j;
+    rows_out[out_i] = adj[slot];
+    T acc = T(0);
+    if (LAYOUT == kPackedWords) {
+      const uint2* p = reinterpret_cast<const uint2*>(
+          static_cast<const uint8_t*>(mirror) + slot * Mp);
+      for (int wd = 0; wd < Mp / 8; ++wd) {
+        const uint2 v = __ldg(p + wd);
+        // bytes are little-endian: nibble t of a 32-bit word is subspace t
+        for (int t = 0; t < 8; ++t) {
+          const int m = 16 * wd + t;
+          if (m < M) acc += table[m * K + ((v.x >> (4 * t)) & 0xF)];
+        }
+        for (int t = 0; t < 8; ++t) {
+          const int m = 16 * wd + 8 + t;
+          if (m < M) acc += table[m * K + ((v.y >> (4 * t)) & 0xF)];
+        }
+      }
+    } else {
+      const int32_t* p = static_cast<const int32_t*>(mirror) + slot * M;
+      for (int m = 0; m < M; ++m) acc += table[m * K + __ldg(p + m)];
+    }
+    sums_out[out_i] = acc;
+  }
+}
+
+template <typename T, int LAYOUT>
+static int launch(const void* nodes, const void* adj, const void* mirror,
+                  const void* adt, void* rows, void* sums, int Q, int W, int R,
+                  int Mp, int M, int K, cudaStream_t stream) {
+  int w_per_block = 256 / R;
+  if (w_per_block < 1) w_per_block = 1;
+  if (w_per_block > W) w_per_block = W;
+  const int n_wblk = (W + w_per_block - 1) / w_per_block;
+  const int threads = repro_flash::threads_for(w_per_block * R);
+  const size_t smem = (size_t)M * K * sizeof(T);
+  flash_expand_kernel<T, LAYOUT><<<Q * n_wblk, threads, smem, stream>>>(
+      static_cast<const int32_t*>(nodes), static_cast<const int32_t*>(adj),
+      mirror, static_cast<const T*>(adt), static_cast<int32_t*>(rows),
+      static_cast<T*>(sums), W, R, Mp, M, K, w_per_block, n_wblk);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int dispatch(int layout, const void* nodes, const void* adj,
+                    const void* mirror, const void* adt, void* rows, void* sums,
+                    int Q, int W, int R, int Mp, int M, int K,
+                    cudaStream_t s) {
+  if (layout == kPackedWords)
+    return launch<T, kPackedWords>(nodes, adj, mirror, adt, rows, sums, Q, W,
+                                   R, Mp, M, K, s);
+  return launch<T, kUnpacked>(nodes, adj, mirror, adt, rows, sums, Q, W, R, Mp,
+                              M, K, s);
+}
+
+// C entry point (bound with ctypes). layout: 0 = (n, R, M) int32 mirror,
+// 1 = packed uint8 read as 8-byte words (Mp % 8 == 0, 8-byte aligned).
+// Returns cudaGetLastError() after launch.
+extern "C" int repro_flash_expand(const void* nodes, const void* adj,
+                                  const void* mirror, const void* adt,
+                                  void* rows, void* sums, int Q, int W, int R,
+                                  int Mp, int M, int K, int layout,
+                                  int is_float, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_float)
+    return dispatch<float>(layout, nodes, adj, mirror, adt, rows, sums, Q, W,
+                           R, Mp, M, K, s);
+  return dispatch<int32_t>(layout, nodes, adj, mirror, adt, rows, sums, Q, W,
+                           R, Mp, M, K, s);
+}

@@ -1,0 +1,198 @@
+"""Wrappers of the three Flash kernels.
+
+Dispatch is by where the tensors lie: CPU tensors take the plain PyTorch
+version in ``ref.py`` (the CPU tests' path); CUDA tensors launch the
+hand-written kernel from ``csrc/`` or raise on a dtype, shape or layout the
+kernel does not take — there is no fallback. Each wrapper adds one to
+``launches[<kernel>]`` where it launches, and nowhere else, so a run can
+show that its main path went through the kernels.
+
+Kernel notes (each source in ``csrc/`` carries the full note):
+
+* ``flash_round`` replaces ``repro/kernels/flash_round.py::flash_round_pallas``.
+  Bound by bytes: the gathered (B, C, M) int32 codes (8.2 GB per bulk pass at
+  n = 1M, C = 128, M = 16). One block per row, table in shared memory.
+* ``flash_expand`` replaces ``repro/kernels/flash_expand.py::flash_expand_pallas``.
+  Bound by the random adjacency and packed code rows (384 B per frontier
+  vertex at R = 32, M = 16). One block per (query, vertex group), one
+  8-byte code load per neighbor, nibbles unpacked in registers.
+* ``flash_scan_blocked`` replaces
+  ``repro/kernels/flash_scan.py::flash_scan_blocked_pallas``. Bound by the
+  (G, M, B) code bytes; warps read one subspace's B codes as one line.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+#: launches of each CUDA kernel since the last reset (plain int counters)
+launches: dict[str, int] = {
+    "flash_round": 0,
+    "flash_expand": 0,
+    "flash_scan_blocked": 0,
+    "flash_scan_batch": 0,
+}
+
+#: largest per-block table the kernels stage (static shared memory limit)
+_MAX_TABLE_BYTES = 48 * 1024
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda(name: str, device: torch.device, **tensors: torch.Tensor) -> None:
+    for arg, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _table_kind(name: str, table: torch.Tensor) -> int:
+    """1 for a float32 table, 0 for int32 levels; raises otherwise."""
+    if table.dtype == torch.float32:
+        return 1
+    if table.dtype == torch.int32:
+        return 0
+    raise TypeError(f"{name}: table must be int32 or float32, got {table.dtype}")
+
+
+def _check_table_size(name: str, m: int, k: int) -> None:
+    if m * k * 4 > _MAX_TABLE_BYTES:
+        raise ValueError(f"{name}: an (M={m}, K={k}) table exceeds {_MAX_TABLE_BYTES} B of shared memory")
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def flash_round(codes: torch.Tensor, adts: torch.Tensor) -> torch.Tensor:
+    """Bulk refinement-round scan: codes (B, C, M) int32, adts (B, M, K)
+    -> (B, C) in adts' dtype."""
+    if codes.device.type == "cpu":
+        return ref.flash_round(codes, adts)
+    b, c, m = codes.shape
+    b2, m2, k = adts.shape
+    if (b, m) != (b2, m2):
+        raise ValueError(f"flash_round: codes (B={b}, M={m}) != adts (B={b2}, M={m2})")
+    if codes.dtype != torch.int32:
+        raise TypeError(f"flash_round: codes must be int32, got {codes.dtype}")
+    is_float = _table_kind("flash_round", adts)
+    _check_cuda("flash_round", codes.device, codes=codes, adts=adts)
+    _check_table_size("flash_round", m, k)
+    out = torch.empty((b, c), dtype=adts.dtype, device=codes.device)
+    if b == 0 or c == 0:
+        return out
+    vec4 = int(m % 4 == 0 and codes.data_ptr() % 16 == 0)
+    err = build.kernel("flash_round")(
+        codes.data_ptr(), adts.data_ptr(), out.data_ptr(), b, c, m, k,
+        is_float, vec4, _stream(codes),
+    )
+    _raise_on("flash_round", err)
+    launches["flash_round"] += 1
+    return out
+
+
+def flash_expand(
+    nodes: torch.Tensor,
+    adjacency: torch.Tensor,
+    mirror: torch.Tensor,
+    adt: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused beam-expansion step: nodes (Q, W) int32, adjacency (n, R) int32,
+    mirror (n, R, ⌈M/2⌉) uint8 or (n, R, M) int32, adt (Q, M, K)
+    -> (rows (Q, W, R) int32, sums (Q, W, R) adt.dtype)."""
+    if nodes.device.type == "cpu":
+        return ref.flash_expand(nodes, adjacency, mirror, adt)
+    q, w = nodes.shape
+    n, r = adjacency.shape
+    q2, m, k = adt.shape
+    packed = mirror.dtype == torch.uint8
+    mp = mirror.shape[-1]
+    expect = (m + 1) // 2 if packed else m
+    if q2 != q or mirror.shape[:2] != (n, r) or mp != expect:
+        raise ValueError(
+            f"flash_expand: nodes {tuple(nodes.shape)}, adjacency {tuple(adjacency.shape)}, "
+            f"mirror {tuple(mirror.shape)} {mirror.dtype}, adt {tuple(adt.shape)} do not fit "
+            f"(expected mirror last dim {expect})"
+        )
+    if nodes.dtype != torch.int32 or adjacency.dtype != torch.int32:
+        raise TypeError("flash_expand: nodes and adjacency must be int32")
+    if not packed and mirror.dtype != torch.int32:
+        raise TypeError(f"flash_expand: mirror must be uint8 or int32, got {mirror.dtype}")
+    if packed and (mp % 8 != 0 or mirror.data_ptr() % 8 != 0):
+        raise ValueError(
+            f"flash_expand: a packed mirror is read as 8-byte words: needs M % 16 == 0 "
+            f"and an 8-byte aligned start (M={m})"
+        )
+    is_float = _table_kind("flash_expand", adt)
+    _check_cuda("flash_expand", nodes.device, nodes=nodes, adjacency=adjacency, mirror=mirror, adt=adt)
+    _check_table_size("flash_expand", m, k)
+    rows = torch.empty((q, w, r), dtype=torch.int32, device=nodes.device)
+    sums = torch.empty((q, w, r), dtype=adt.dtype, device=nodes.device)
+    if q == 0 or w == 0 or r == 0:
+        return rows, sums
+    err = build.kernel("flash_expand")(
+        nodes.data_ptr(), adjacency.data_ptr(), mirror.data_ptr(), adt.data_ptr(),
+        rows.data_ptr(), sums.data_ptr(), q, w, r, mp, m, k, int(packed), is_float,
+        _stream(nodes),
+    )
+    _raise_on("flash_expand", err)
+    launches["flash_expand"] += 1
+    return rows, sums
+
+
+def flash_scan_blocked(blocks: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
+    """Blocked-layout ADT scan: blocks (G, M, B) with adt (M, K) -> (G, B),
+    or batched blocks (Q, G, M, B) with adt (Q, M, K) -> (Q, G, B)."""
+    if blocks.device.type == "cpu":
+        return ref.flash_scan_blocked(blocks, adt)
+    if blocks.dim() == 3 and adt.dim() == 2:
+        return flash_scan_blocked(blocks[None], adt[None])[0]
+    if blocks.dim() != 4 or adt.dim() != 3:
+        raise ValueError(
+            f"flash_scan_blocked: blocks {tuple(blocks.shape)} / adt {tuple(adt.shape)} "
+            "must be (G, M, B) / (M, K) or (Q, G, M, B) / (Q, M, K)"
+        )
+    q, g, m, b = blocks.shape
+    q2, m2, k = adt.shape
+    if (q, m) != (q2, m2):
+        raise ValueError(f"flash_scan_blocked: blocks (Q={q}, M={m}) != adt (Q={q2}, M={m2})")
+    if blocks.dtype != torch.int32:
+        raise TypeError(f"flash_scan_blocked: blocks must be int32, got {blocks.dtype}")
+    is_float = _table_kind("flash_scan_blocked", adt)
+    _check_cuda("flash_scan_blocked", blocks.device, blocks=blocks, adt=adt)
+    _check_table_size("flash_scan_blocked", m, k)
+    out = torch.empty((q, g, b), dtype=adt.dtype, device=blocks.device)
+    if q == 0 or g == 0 or b == 0:
+        return out
+    err = build.kernel("flash_scan_blocked")(
+        blocks.data_ptr(), adt.data_ptr(), out.data_ptr(), q, g, m, b, k,
+        is_float, _stream(blocks),
+    )
+    _raise_on("flash_scan_blocked", err)
+    launches["flash_scan_blocked"] += 1
+    return out
+
+
+def flash_scan_batch(rows: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
+    """Neighbor-row batch scan: rows (Q, W, R, M) int32, adt (Q, M, K)
+    -> (Q, W, R). The transpose to (Q, W, M, R) groups each block's codes
+    by subspace (the reference's ``ops.flash_scan_batch``), then one
+    ``flash_scan_blocked`` launch scores all Q·W rows."""
+    if rows.shape[-1] != adt.shape[-2]:
+        raise ValueError(f"rows M={rows.shape[-1]} != adt M={adt.shape[-2]}")
+    blocks = rows.transpose(-1, -2).contiguous()
+    before = launches["flash_scan_blocked"]
+    out = flash_scan_blocked(blocks, adt)
+    launches["flash_scan_batch"] += launches["flash_scan_blocked"] - before
+    return out

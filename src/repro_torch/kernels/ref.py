@@ -1,0 +1,66 @@
+"""Plain PyTorch versions of the three Flash kernels.
+
+Each function is the semantic ground truth of its CUDA kernel in
+``csrc/``: the wrappers in ``ops.py`` take these for CPU tensors, the CPU
+tests hold them against the reference package's oracles, and
+``chip_smoke.py`` holds each kernel against them on the card. Integer
+tables give exact sums; float tables sum in torch's own order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import quantize as qz
+
+
+def _sum_m(vals: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return vals.sum(-1).to(dtype)
+
+
+def flash_round(codes: torch.Tensor, adts: torch.Tensor) -> torch.Tensor:
+    """Bulk refinement-round scan: codes (B, C, M) int in [0, K), adts
+    (B, M, K) per-row tables -> (B, C), Σ_m adts[b, m, codes[b, c, m]]."""
+    b, _, m = codes.shape
+    bi = torch.arange(b, device=codes.device)[:, None, None]
+    mi = torch.arange(m, device=codes.device)[None, None, :]
+    return _sum_m(adts[bi, mi, codes.long()], adts.dtype)
+
+
+def flash_expand(
+    nodes: torch.Tensor,
+    adjacency: torch.Tensor,
+    mirror: torch.Tensor,
+    adt: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused beam-expansion step, batched over Q queries.
+
+    nodes (Q, W) int32 frontier ids (−1 clamped to row 0, caller-masked);
+    adjacency (n, R) int32; mirror (n, R, ⌈M/2⌉) uint8 packed 4-bit codes or
+    (n, R, M) int32 unpacked; adt (Q, M, K).
+    Returns rows (Q, W, R) int32 = adjacency[max(nodes, 0)] and sums
+    (Q, W, R) = Σ_m adt[q, m, code_m] over the mirror row's codes.
+    """
+    q, m, _ = adt.shape
+    safe = nodes.clamp_min(0).long()
+    rows = adjacency[safe]
+    mir = mirror[safe]  # (Q, W, R, Mp)
+    if mirror.dtype == torch.uint8:
+        codes = qz.unpack4(mir)[..., :m]
+    else:
+        codes = mir
+    qi = torch.arange(q, device=adt.device)[:, None, None, None]
+    mi = torch.arange(m, device=adt.device)[None, None, None, :]
+    return rows, _sum_m(adt[qi, mi, codes.long()], adt.dtype)
+
+
+def flash_scan_blocked(blocks: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
+    """Access-aware blocked scan: blocks (G, M, B) with adt (M, K) -> (G, B),
+    or batched blocks (Q, G, M, B) with adt (Q, M, K) -> (Q, G, B);
+    Σ_m adt[m, blocks[g, m, b]]."""
+    if blocks.dim() == 3:
+        return flash_scan_blocked(blocks[None], adt[None])[0]
+    q, _, m, _ = blocks.shape
+    qi = torch.arange(q, device=adt.device)[:, None, None, None]
+    mi = torch.arange(m, device=adt.device)[None, None, :, None]
+    return adt[qi, mi, blocks.long()].sum(-2).to(adt.dtype)

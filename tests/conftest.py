@@ -98,6 +98,12 @@ def _install_hypothesis_stub() -> None:
 _install_hypothesis_stub()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips, with its reason, without one)"
+    )
+
+
 def make_clustered(
     n: int, d: int, *, n_clusters: int = 24, sep: float = 1.0, seed: int = 0
 ) -> np.ndarray:
