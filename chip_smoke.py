@@ -1,30 +1,50 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
 
-    python3 chip_smoke.py              # the full run: 1M x 128 vectors
-    python3 chip_smoke.py --n 100000   # a smaller base set (the cut rule)
+    python3 chip_smoke.py              # the full run: 500k x 128 vectors, 64 segments
+    python3 chip_smoke.py --n 100000   # quick
 
 Phases, each printing one JSON line (any failure raises, so the exit is
 non-zero and no result line is printed):
 
-1. device   the card's name and power limit; nvcc builds the three Flash
-            kernels from ``src/repro_torch/kernels/csrc`` (seconds printed).
-2. kernels  each kernel on the card at the main path's shapes, held against
-            its plain PyTorch version (int32 tables bit-equal, float32
-            tables allclose), timed beside its bound and the plain version.
+1. device   the card's name and power limit; nvcc builds the four kernels
+            from ``src/repro_torch/kernels/csrc`` in parallel (seconds).
+2. kernels  each kernel on the card at the paths' shapes, held against its
+            plain PyTorch version (int32 tables bit-equal, float32 tables
+            and ``l2_batch`` allclose, routes equal), timed beside its
+            bound, the plain version and (``l2_batch``) ``torch.cdist``.
 3. build    ``AnnIndex.build(algo="hnsw", backend="flash_blocked",
-            strategy="bulk")`` over ``vector_dataset(seed=0, d=128,
-            n_clusters=64)`` (SIFT1M's shape): seconds and n_dists per phase.
+            strategy="bulk")`` over the ``--n`` base rows of one
+            ``vector_dataset(seed=0, n=--n + 1,000, d=128, n_clusters=64)``
+            draw (SIFT1M's shape): seconds and n_dists per phase.
 4. search   1,000 held-out queries, k = 10, exact rerank, ef ∈ {64, 256},
-            width ∈ {1, 4}: QPS and recall@10 against a chunked exact k-NN;
-            the unfused step must return the fused step's ids.
+            width ∈ {1, 4}: QPS and recall@10 against the port's
+            ``exact_knn`` (kernel ``l2_batch``), itself cross-checked on
+            100 queries against a plain loop; the unfused step must return
+            the fused step's ids.
 5. check    on small inputs the card's path equals the plain CPU path: beam
-            search on the built index with the same query tables, and a
-            whole 20k-vector build from the same coder.
+            search on the built index with the same query tables, a whole
+            20k-vector build from the same coder, and an 8k-row
+            ``SegmentedAnnIndex`` (4 segments) built on the card, restored
+            on the CPU, then grown, pruned, compacted and searched on both.
+6. sharded  the scale-out path: ``ShardedBuilder`` streams the first
+            ``--n`` − 2,000 rows into 64 balanced segments (inline,
+            each a bulk Flash-HNSW build): assignment
+            seconds (bootstrap, streaming pass), segment sizes, the sum and
+            the largest of the per-segment build seconds, n_dists.
+7. segmented_search  the held-out queries, k = 10, exact rerank, ef ∈ {64,
+            256}, W = 4, the default fan-out (one card: the loop over
+            segments): QPS, recall@10 against phase 4's ground truth,
+            n_scan, n_rerank; the fan-out threads must return the same ids.
+8. maintenance  ``add`` the last 2,000 rows (routed by ``nearest_centroid``),
+            search, ``delete`` 10,000 ids, search (ef = 256, W = 4): no
+            deleted id may come back; recall
+            against an exact k-NN of the live rows.
 
-Launch counts are zeroed just before the build and read just after the
-last search; the script fails if a kernel of the path never launched.
-Imports nothing of the JAX package.
+Launch counts are zeroed just before each path (the main path: phases 3–4;
+the scale-out path: phases 6–8) and read just after it; the script fails
+if a kernel of a path never launched there. Imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -32,6 +52,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -39,6 +60,9 @@ import time
 import numpy as np
 
 QUERIES = 1000  # held-out search queries, the search batch
+SEGMENTS = 64  # the scale-out path's segments (benchmarks/bench_scalability.py:60-61)
+ADD_ROWS = 2000  # rows the scale-out path adds through routed growth
+DELETE_ROWS = 10000  # ids the scale-out path deletes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 CUDA_CORE_OPS_PER_S = 67e12  # float32 outside the tensor cores; int32 adds counted at it
 
@@ -46,11 +70,13 @@ REPLACES = {
     "flash_round": "src/repro/kernels/flash_round.py:49",
     "flash_expand": "src/repro/kernels/flash_expand.py:81",
     "flash_scan_blocked": "src/repro/kernels/flash_scan.py:94",
+    "l2_batch": "src/repro/kernels/l2_batch.py:43",
 }
 SOURCES = {
     "flash_round": "src/repro_torch/kernels/csrc/flash_round.cu",
     "flash_expand": "src/repro_torch/kernels/csrc/flash_expand.cu",
     "flash_scan_blocked": "src/repro_torch/kernels/csrc/flash_scan_blocked.cu",
+    "l2_batch": "src/repro_torch/kernels/csrc/l2_batch.cu",
 }
 
 
@@ -171,12 +197,59 @@ def check_kernels(dev, n: int) -> dict:
             plain_ms=time_ms(lambda: ref.flash_scan_blocked(blocks, adt), reps=3, inner=2),
             bound_ms=bnd, bound_by=by, library_ms=None,
         )
+
+    # l2_batch: a ground-truth tile (exact_knn, 1,000 queries x one 8,192-row
+    # chunk) and an assignment chunk (65,536 rows x 64 centroids)
+    for key, (nn, cc) in (("l2_batch_gt", (q, 8192)), ("l2_batch_assign", (65536, 64))):
+        x = torch.randn((nn, 128), generator=g, device=dev) * 10
+        y = torch.randn((cc, 128), generator=g, device=dev) * 10
+        got, want = ops.l2_batch(x, y), ref.l2_batch(x, y)
+        atol = l2_atol(x, y)
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=1e-5, atol=atol):
+            raise AssertionError(f"l2_batch {nn}x{cc}: off by {err} (atol {atol})")
+        bnd, by = bound_ms(4 * (nn * 128 + cc * 128 + nn * cc), 2 * nn * cc * 128)
+        out[key] = dict(
+            shape=[nn, cc, 128], max_abs_err=err, atol=atol,
+            ms=time_ms(lambda: ops.l2_batch(x, y)),
+            plain_ms=time_ms(lambda: ref.l2_batch(x, y)),
+            bound_ms=bnd, bound_by=by,
+            library_ms=time_ms(lambda: torch.cdist(x, y, compute_mode="use_mm_for_euclid_dist")),
+        )
+    # nearest_centroid: routed growth's shape, with a banned mask
+    x = torch.randn((2000, 128), generator=g, device=dev) * 10
+    cents = torch.randn((64, 128), generator=g, device=dev) * 10
+    banned = torch.zeros(64, dtype=torch.bool, device=dev)
+    banned[[5, 17]] = True
+    route, d2 = ops.nearest_centroid(x, cents, banned=banned)
+    plain = ref.l2_batch(x, cents).masked_fill(banned[None], float("inf"))
+    flips, near = route_flips(route, plain, l2_atol(x, cents))
+    if flips > near or bool(banned[route.long()].any()):
+        raise AssertionError(f"nearest_centroid: {flips} routes differ, {near} of them at near ties")
+    out["nearest_centroid"] = dict(shape=[2000, 64, 128], route_flips=flips, near_tie_flips=near)
     torch.cuda.synchronize()
     return out
 
 
-def exact_knn(data, queries, k: int, chunk: int = 1 << 17):
-    """Chunked exact k-NN on the card (ground truth; not part of the path)."""
+def l2_atol(x, y) -> float:
+    """The stated l2_batch tolerance: 1e-5 · max(‖x‖² + ‖y‖²)."""
+    return 1e-5 * float((x * x).sum(1).max() + (y * y).sum(1).max())
+
+
+def route_flips(route, plain_d2, atol: float) -> tuple[int, int]:
+    """(routes that differ from the plain argmin, how many of those are near
+    ties: the route's plain distance within 2·atol of the plain minimum)."""
+    from repro_torch.utils import first_argmin
+
+    want = first_argmin(plain_d2, 1)
+    diff = route.long() != want
+    gap = plain_d2.gather(1, route[:, None].long())[:, 0] - plain_d2.gather(1, want[:, None])[:, 0]
+    return int(diff.sum()), int((diff & (gap <= 2 * atol)).sum())
+
+
+def plain_knn(data, queries, k: int, chunk: int = 1 << 17):
+    """Chunked exact k-NN in plain torch (a cross-check, not the path):
+    (ids (Q, k) int64, squared dists (Q, k))."""
     import torch
 
     q2 = (queries * queries).sum(1, keepdim=True)
@@ -189,7 +262,26 @@ def exact_knn(data, queries, k: int, chunk: int = 1 << 17):
         ii = torch.cat([best_i, torch.arange(s, s + x.shape[0], device=data.device).expand(queries.shape[0], -1)], 1)
         best_d, pos = torch.topk(dd, k, dim=1, largest=False)
         best_i = ii.gather(1, pos)
-    return best_i
+    return best_i, best_d
+
+
+def knn_cross_check(gt_ids, gt_d, data, queries, k: int = 10) -> dict:
+    """The port's exact_knn against the plain loop on ``queries``: id sets
+    equal except where the plain k-th and (k+1)-th distances are within the
+    l2 tolerance (a near tie), sorted distances allclose."""
+    import torch
+
+    ids_p, d_p = plain_knn(data, queries, k + 1)
+    atol = l2_atol(queries, data)
+    differ = near = 0
+    for i in range(queries.shape[0]):
+        if set(gt_ids[i].tolist()) != set(ids_p[i, :k].tolist()):
+            differ += 1
+            near += int(float(d_p[i, k] - d_p[i, k - 1]) <= 2 * atol)
+    if differ > near or not torch.allclose(gt_d, d_p[:, :k], rtol=1e-5, atol=atol):
+        raise AssertionError(f"exact_knn vs the plain loop: {differ} id sets differ, {near} at near ties")
+    return {"queries": int(queries.shape[0]), "id_sets_differ": differ, "near_ties": near,
+            "max_abs_dist_err": float((gt_d - d_p[:, :k]).abs().max())}
 
 
 def exhaustive_scan_recall(index, queries, gt, c: int, chunk: int = 1 << 16) -> float:
@@ -280,16 +372,222 @@ def small_input_checks(dev, index, queries, knn) -> dict:
 
     res = search_hnsw(g_gpu, queries, spec=SearchSpec(k=10, ef=256, width=4),
                       reranker=make_reranker("exact", raw_vectors=data))
-    out["small_build_recall@10_ef256"] = rec = recall_at(res.ids, knn(data, queries, 10))
+    out["small_build_recall@10_ef256"] = rec = recall_at(res.ids, knn(data, queries, 10)[0])
     if rec < 0.5:
         raise AssertionError(f"small build: recall@10 at ef=256 is {rec}, below 0.5")
     return out
 
 
+def segmented_check(data_np, q_np, workdir: str, device: str = "cuda") -> dict:
+    """Phase 5's scale-out check: an 8k-row collection in 4 segments built on
+    the card and restored on the CPU; both sides add 500 rows, delete 100
+    ids, compact and search, and must return equal ids."""
+    import torch
+
+    from repro_torch.graph.engine import BuildParams
+    from repro_torch.index import SegmentedAnnIndex
+
+    params = BuildParams(r_upper=8, r_base=16, ef=32, batch=16, max_layers=2)
+    card = SegmentedAnnIndex.build_streaming(
+        data_np[:8000], n_segments=4, params=params, workdir=workdir, device=device,
+        backend_kwargs=dict(d_f=64, m_f=16, l_f=4, h=8, kmeans_iters=8),
+    )
+    cpu = SegmentedAnnIndex.restore(*card.export_state(), device="cpu")
+    dead = np.random.default_rng(1).choice(8500, 100, replace=False)
+    ids = {}
+    for name, coll in (("card", card), ("cpu", cpu)):
+        coll.add(data_np[8000:8500])
+        coll.delete(dead)
+        coll.compact()
+        ids[name] = coll.search(q_np[:200], k=10, ef=64, width=4).ids.cpu()
+        if np.isin(ids[name].numpy(), dead).any():
+            raise AssertionError(f"segmented check ({name}): a deleted id came back")
+    same_route = bool((card._locate == cpu._locate).all())
+    adj_rows = [float((a.graph.adj0.cpu() == b.graph.adj0).all(1).double().mean())
+                for a, b in zip(card.segments, cpu.segments)]
+    if not torch.equal(ids["card"], ids["cpu"]):
+        raise AssertionError(
+            f"segmented check: card and CPU ids differ (routes equal: {same_route}, "
+            f"adj0 rows equal per segment: {adj_rows})"
+        )
+    return {"segmented_check_n": card.n, "segmented_card_equals_cpu": True,
+            "segmented_routes_equal": same_route, "segmented_adj0_rows_equal": adj_rows}
+
+
+def segment_scan_recall(coll, queries, gt, c: int = 256, block: int = 50) -> float:
+    """recall@10 of an exhaustive scan of every segment's own codes with the
+    queries' ADTs under that segment's coder, keeping the best ``c`` per
+    segment, reranking the union exactly (a check, not part of the path)."""
+    import torch
+
+    cands = []
+    for s, seg in enumerate(coll.segments):
+        be = seg.backend
+        adt = be.prepare_query(queries).adt_q
+        q, m, k = adt.shape
+        onehot = torch.zeros((be.n, m * k), device=queries.device)
+        onehot.scatter_(1, be.codes.long() + torch.arange(m, device=queries.device) * k, 1.0)
+        d = adt.reshape(q, m * k).to(torch.float32) @ onehot.T
+        top = torch.topk(d, min(c, be.n), dim=1, largest=False).indices
+        cands.append(torch.from_numpy(coll.global_ids(s)).to(queries.device)[top])
+    cands = torch.cat(cands, 1)
+    raw = coll.raw_vectors
+    best = []
+    for i in range(0, queries.shape[0], block):
+        cb = cands[i:i + block]
+        d = ((raw[cb] - queries[i:i + block, None, :]) ** 2).sum(-1)
+        best.append(cb.gather(1, torch.topk(d, 10, dim=1, largest=False).indices))
+    return recall_at(torch.cat(best), gt)
+
+
+def timed_search(coll, queries, **kw):
+    import torch
+
+    from repro_torch.utils import sync
+
+    coll.search(queries[:32], **kw)  # warm-up
+    sync(queries.device)
+    t0 = time.perf_counter()
+    res = coll.search(queries, **kw)
+    sync(queries.device)
+    dt = time.perf_counter() - t0
+    if not bool(torch.isfinite(res.dists).all()) or tuple(res.ids.shape) != (queries.shape[0], 10):
+        raise AssertionError(f"segmented search {kw}: malformed result")
+    return res, dt
+
+
+def scale_out_path(base_np, queries, gt, spill: str, t_start: float) -> tuple[dict, dict]:
+    """Phases 6–8 on the main path's rows: sharded streaming build of all
+    but the last ``ADD_ROWS`` rows, segmented fan-out search, routed growth
+    of those rows and deletion, scored against the main path's ground
+    truth ``gt`` and then an ``exact_knn`` of the live rows. Returns the
+    path's kernel launches and its ``l2_batch`` launches by use
+    (assignment, add, ground truth)."""
+    import torch
+
+    from repro_torch.graph.engine import BuildParams
+    from repro_torch.index import ShardConfig, ShardedBuilder, exact_knn
+    from repro_torch.kernels import ops, ref
+    from repro_torch.utils import sync
+
+    dev = queries.device
+    n = base_np.shape[0]
+    ops.reset_launches()
+
+    # ---- 6. sharded streaming build ----------------------------------------
+    builder = ShardedBuilder(
+        ShardConfig(n_segments=SEGMENTS, chunk_size=65536, balanced=True, algo="hnsw",
+                    backend="flash_blocked", strategy="bulk", params=BuildParams(),
+                    backend_kwargs=dict(d_f=64, m_f=16, l_f=4, h=8)),
+        workdir=os.path.join(spill, "shard"), device=dev,
+    )
+    before = dict(ops.launches)
+    plan = builder.assign(base_np[: n - ADD_ROWS])
+    assign_l2 = ops.launches["l2_batch"] - before["l2_batch"]
+    if assign_l2 == 0:
+        raise AssertionError("the streaming assignment never launched l2_batch")
+    res = builder.build(plan=plan)
+    coll = res.index
+    walls = [m["wall_s"] for m in res.segments]
+    phase_s = {}
+    for m in res.segments:
+        for key, v in m["seconds"].items():
+            phase_s[key] = phase_s.get(key, 0.0) + v
+    unreach = [m["repair_unreachable"] for m in res.segments]
+    emit({"phase": "sharded", "n": n - ADD_ROWS, "segments": plan.n_segments,
+          "assign_s": builder.assign_seconds, "seg_size_min": min(plan.seg_sizes),
+          "seg_size_max": max(plan.seg_sizes), "build_s": res.wall_build_s,
+          "segment_build_s_sum": sum(walls), "segment_build_s_max": max(walls),
+          "segment_build_s": walls, "phase_s_sum": phase_s, "repair_unreachable": unreach,
+          "n_dists": sum(m["n_dists"] for m in res.segments),
+          "n_dists_by_phase": {k: sum(m["phases"][k] for m in res.segments) for k in res.segments[0]["phases"]},
+          "assign_l2_batch_launches": assign_l2, "launches": dict(ops.launches),
+          "elapsed_s": time.perf_counter() - t_start})
+    if sum(plan.seg_sizes) != n - ADD_ROWS:
+        raise AssertionError("the segments do not hold every streamed row")
+
+    # ---- 7. segmented fan-out search ---------------------------------------
+    # the default fan-out: on one card, the sequential loop over segments
+    results, seq_ids = [], None
+    for ef in (64, 256):
+        before = dict(ops.launches)
+        r, dt = timed_search(coll, queries, k=10, ef=ef, width=4)
+        results.append({"ef": ef, "width": 4, "qps": QUERIES / dt, "seconds": dt,
+                        "recall@10": recall_at(r.ids, gt), "n_scan": r.n_scan, "n_rerank": r.n_rerank,
+                        "flash_expand_launches": ops.launches["flash_expand"] - before["flash_expand"]})
+        if ef == 64:
+            seq_ids = r.ids
+    sync(dev)
+    t0 = time.perf_counter()
+    fan = coll.search(queries, k=10, ef=64, width=4, fanout=True)
+    sync(dev)
+    fan_s = time.perf_counter() - t0
+    if not torch.equal(fan.ids, seq_ids):
+        raise AssertionError("fanout=True returned other ids than the sequential loop (ef=64)")
+    scan_rec = segment_scan_recall(coll, queries, gt)
+    best = results[-1]["recall@10"]
+    emit({"phase": "segmented_search", "queries": QUERIES, "k": 10, "results": results,
+          "fanout_equals_sequential": True, "threads_ef64_qps": QUERIES / fan_s,
+          "segment_scan_256_recall@10": scan_rec,
+          "elapsed_s": time.perf_counter() - t_start})
+    if best < min(0.5, 0.5 * scan_rec):
+        raise AssertionError(f"segmented recall@10 at ef=256 is {best}, below min(0.5, ½·{scan_rec})")
+
+    # ---- 8. maintenance: routed add, delete --------------------------------
+    new = torch.from_numpy(base_np[n - ADD_ROWS:]).to(dev)
+    before = dict(ops.launches)
+    sync(dev)
+    t0 = time.perf_counter()
+    gids = coll.add(new)
+    sync(dev)
+    add_s = time.perf_counter() - t0
+    add_l2 = ops.launches["l2_batch"] - before["l2_batch"]
+    if add_l2 == 0:
+        raise AssertionError("add never launched nearest_centroid's l2_batch")
+    if not np.array_equal(gids, np.arange(n - ADD_ROWS, n)):
+        raise AssertionError("add assigned other global ids than the stream's")
+    route = torch.from_numpy(coll._locate[gids, 0].astype(np.int32)).to(dev)
+    flips, near = route_flips(route, ref.l2_batch(new, coll.centroids), l2_atol(new, coll.centroids))
+    if flips > near:
+        raise AssertionError(f"add: {flips} rows left the plain argmin's segment, {near} at near ties")
+    r_add, dt_add = timed_search(coll, queries, k=10, ef=256, width=4)
+    rng = np.random.default_rng(0)
+    dead = rng.choice(n, DELETE_ROWS, replace=False)
+    t0 = time.perf_counter()
+    n_dead = coll.delete(dead)
+    del_s = time.perf_counter() - t0
+    r_del, dt_del = timed_search(coll, queries, k=10, ef=256, width=4)
+    if np.isin(r_del.ids.cpu().numpy(), dead).any():
+        raise AssertionError("a deleted id came back from search")
+    live = np.setdiff1d(np.arange(n), dead)
+    live_t = torch.from_numpy(live).to(dev)
+    before = ops.launches["l2_batch"]
+    gt_live = live_t[exact_knn(queries, torch.from_numpy(base_np[live]).to(dev), k=10)[0].long()]
+    sync(dev)
+    launches = dict(ops.launches)
+    l2_uses = {"assignment": assign_l2, "add": add_l2, "ground_truth": launches["l2_batch"] - before}
+    emit({"phase": "maintenance", "added": ADD_ROWS, "add_s": add_s, "add_l2_batch_launches": add_l2,
+          "route_flips": flips, "near_tie_flips": near, "n_after_add": coll.n,
+          "recall@10_after_add_ef256": recall_at(r_add.ids, gt), "qps_after_add": QUERIES / dt_add,
+          "deleted": n_dead, "delete_s": del_s, "n_active": coll.n_active,
+          "recall@10_after_delete_ef256": recall_at(r_del.ids, gt_live), "qps_after_delete": QUERIES / dt_del,
+          "deleted_ids_returned": 0, "launches": launches, "l2_batch_launches_by_use": l2_uses,
+          "elapsed_s": time.perf_counter() - t_start})
+    for name in ("flash_round", "flash_expand", "l2_batch"):
+        if launches[name] == 0:
+            raise AssertionError(f"the scale-out path never launched {name}")
+    return launches, l2_uses
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=1_000_000, help="base vectors (cut rule: 1M, 500k, 250k)")
+    # The repo's scalability setting is 1M vectors in 64 segments. Both paths
+    # at 1M ran 1,119 s and 1,151 s of the 1,200 s limit on the H100, so the
+    # rows are cut to 500k and the 64 segments kept (PERF.md records it).
+    ap.add_argument("--n", type=int, default=500_000,
+                    help="base rows of both paths (the scalability setting: 1M)")
     args = ap.parse_args()
+    n = args.n
 
     import torch
 
@@ -300,7 +598,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch.data.synthetic import vector_dataset
     from repro_torch.graph.engine import PHASE_NAMES, BuildParams
-    from repro_torch.index import AnnIndex
+    from repro_torch.index import AnnIndex, exact_knn
     from repro_torch.kernels import build, ops
 
     t_start = time.perf_counter()
@@ -324,14 +622,14 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas})
 
     # ---- 2. kernels vs plain at the path's shapes ---------------------------
-    kern = check_kernels(dev, args.n)
+    kern = check_kernels(dev, n)
     emit({"phase": "kernels", **kern})
 
     # ---- 3. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    allx = vector_dataset(0, n=args.n + QUERIES, d=128, n_clusters=64)
-    data_np, q_np = allx[: args.n], allx[args.n:]
-    data = torch.from_numpy(data_np).to(dev)
+    allx = vector_dataset(0, n=n + QUERIES, d=128, n_clusters=64)
+    base_np, q_np = allx[:n], allx[n:]
+    data = torch.from_numpy(base_np).to(dev)
     queries = torch.from_numpy(q_np).to(dev)
     data_s = time.perf_counter() - t0
     params = BuildParams()
@@ -346,18 +644,24 @@ def main() -> int:
     build_wall = time.perf_counter() - t0
     st = index.last_stats
     build_launches = dict(ops.launches)
-    emit({"phase": "build", "n": args.n, "d": 128, "data_gen_s": data_s, "build_s": build_wall,
+    emit({"phase": "build", "n": n, "d": 128, "data_gen_s": data_s, "build_s": build_wall,
           "seconds": st.seconds, "n_dists": st.n_dists, "n_dists_by_phase": dict(zip(PHASE_NAMES, st.phases)),
           "n_hops": st.n_hops, "repair_unreachable": st.repair_unreachable, "launches": build_launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     if build_launches["flash_round"] == 0:
         raise AssertionError("the build never launched flash_round")
     adj0 = index.graph.adj0
-    if not bool(((adj0 >= -1) & (adj0 < args.n)).all()):
+    if not bool(((adj0 >= -1) & (adj0 < n)).all()):
         raise AssertionError("adjacency ids out of range")
 
     # ---- 4. search ---------------------------------------------------------
-    gt = exact_knn(data, queries, 10)
+    t0 = time.perf_counter()
+    gt_i32, gt_d = exact_knn(queries, data, k=10)
+    torch.cuda.synchronize()
+    gt_s = time.perf_counter() - t0
+    gt_l2 = ops.launches["l2_batch"] - build_launches["l2_batch"]
+    gt = gt_i32.long()
+    gt_check = knn_cross_check(gt[:100], gt_d[:100], data, queries[:100])
     results = []
     fused_ids = {}
     for ef in (64, 256):
@@ -382,7 +686,7 @@ def main() -> int:
             raise AssertionError(f"unfused search (ef=64, width={width}) returned other ids than the fused one")
     torch.cuda.synchronize()
     launches = dict(ops.launches)
-    for name in ("flash_round", "flash_expand", "flash_scan_blocked"):
+    for name in ("flash_round", "flash_expand", "flash_scan_blocked", "l2_batch"):
         if launches[name] == 0:
             raise AssertionError(f"the main path never launched {name}")
     # The sanity floor: the graph search at ef=256 must reach at least half
@@ -393,23 +697,41 @@ def main() -> int:
     best = max(r["recall@10"] for r in results if r["ef"] == 256)
     emit({"phase": "search", "queries": QUERIES, "k": 10, "results": results,
           "exhaustive_scan_256_recall@10": scan_rec, "unfused_equals_fused": True,
-          "launches": launches})
+          "ground_truth_s": gt_s, "ground_truth_cross_check": gt_check,
+          "launches": launches, "elapsed_s": time.perf_counter() - t_start})
     if best < 0.5 * scan_rec:
         raise AssertionError(
             f"recall@10 at ef=256 is {best}, below half the exhaustive scan's {scan_rec}"
         )
 
     # ---- 5. small-input checks against the CPU path -------------------------
-    emit({"phase": "check", **small_input_checks(dev, index, queries, exact_knn)})
+    spill = os.path.join(root, "build", "chip_smoke_spill")
+    shutil.rmtree(spill, ignore_errors=True)
+    check = small_input_checks(dev, index, queries, plain_knn)
+    check.update(segmented_check(base_np, q_np, os.path.join(spill, "check")))
+    emit({"phase": "check", **check, "elapsed_s": time.perf_counter() - t_start})
+    del index, data
+
+    # ---- 6.–8. the scale-out path ---------------------------------------------
+    try:
+        scale_launches, l2_uses = scale_out_path(base_np, queries, gt, spill, t_start)
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    # l2_batch's launches, split by what called it: the scale-out path's work
+    # (assignment, routed add) and the ground truths that score both paths
+    l2_uses["ground_truth"] += gt_l2
 
     rows = []
     for name, key in (("flash_round", "flash_round"), ("flash_expand", "flash_expand_w4"),
-                      ("flash_scan_blocked", "flash_scan_blocked_w4")):
+                      ("flash_scan_blocked", "flash_scan_blocked_w4"), ("l2_batch", "l2_batch_gt")):
         kr = kern[key]
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-                     "launches": launches[name], "max_abs_err": kr["max_abs_err"], "ms": kr["ms"],
+                     "launches": launches[name] + scale_launches[name],
+                     "max_abs_err": kr["max_abs_err"], "ms": kr["ms"],
                      "plain_ms": kr["plain_ms"], "bound_ms": kr["bound_ms"], "bound_by": kr["bound_by"],
                      "library_ms": kr["library_ms"], "shape": kr["shape"]})
+        if name == "l2_batch":
+            rows[-1]["launches_by_use"] = l2_uses
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

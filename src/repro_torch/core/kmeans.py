@@ -1,4 +1,5 @@
-"""Batched k-means for subspace codebooks (paper §3.3.3, Eq. 8).
+"""Batched k-means for subspace codebooks (paper §3.3.3, Eq. 8), and the
+single-space fit of the segment routing table (``kmeans_fit``).
 
 All ``M`` subspace codebooks are fitted at once over a leading batch axis:
 k-means++ seeding drawn with ``torch.multinomial`` on an explicit
@@ -76,6 +77,13 @@ def kmeans_fit_batched(
         centroids, _ = _lloyd_step(xs, centroids)
     _, inertia = _lloyd_step(xs, centroids)
     return centroids, inertia
+
+
+def kmeans_fit(gen: torch.Generator, x: torch.Tensor, *, k: int, iters: int = 25):
+    """k-means over one space: x (n, d) -> centroids (k, d), inertia ()
+    (the batched fit with a batch of one)."""
+    centroids, inertia = kmeans_fit_batched(gen, x[None], k=k, iters=iters)
+    return centroids[0], inertia[0]
 
 
 def assign_codes_batched(xs: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:

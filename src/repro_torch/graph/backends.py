@@ -15,6 +15,8 @@ protocol (every query-side argument is batched over a leading axis Q):
     neighbor_dists_batch(qctx, nodes, ids (Q, W, R)) -> (Q, W, R): the
                                           unfused step (``flash_scan_blocked``)
     with_updated_edges(ids, nbr_ids)   -> backend  mirror commit hook
+    extend(new (m, D))                 -> backend  grown by m vectors under
+                                          the frozen coder (``AnnIndex.add``)
     state_dict() / from_state(state)   the reference's dotted keys and dtypes
 
 Distances are int32 ADT/SDT level sums cast to float32, so every
@@ -44,6 +46,11 @@ _NOT_PORTED = (
 
 def _to_np(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _grow_raw(raw, new):
+    """extend() helper: grow the optional retained-raw table in lockstep."""
+    return None if raw is None else torch.cat([raw, new])
 
 
 class FlashBackend:
@@ -110,6 +117,15 @@ class FlashBackend:
 
     def with_updated_edges(self, ids, nbr_ids):  # noqa: ARG002
         return self
+
+    def extend(self, new_vectors: torch.Tensor) -> "FlashBackend":
+        """A new backend with codes for ``new_vectors`` (m, D) appended,
+        encoded under the frozen coder."""
+        new = new_vectors.to(device=self.device, dtype=torch.float32)
+        return FlashBackend(
+            self.coder, torch.cat([self.codes, fl.encode(self.coder, new)]),
+            _grow_raw(self.raw, new),
+        )
 
     def raw_dists(self, q: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         if self.raw is None:
@@ -232,6 +248,20 @@ class FlashBlockedBackend(FlashBackend):
             )
             self.nbr_codes[ids[s:s + _MIRROR_BLOCK]] = self._pack_rows(rows)
         return self
+
+    def extend(self, new_vectors: torch.Tensor) -> "FlashBlockedBackend":
+        """Append codes for the new vectors plus all-empty mirror rows; the
+        rows fill in as the growing build commits edges through
+        ``with_updated_edges``."""
+        new = new_vectors.to(device=self.device, dtype=torch.float32)
+        mirror_new = torch.zeros(
+            (new.shape[0],) + tuple(self.nbr_codes.shape[1:]),
+            dtype=self.nbr_codes.dtype, device=self.device,
+        )
+        return FlashBlockedBackend(
+            self.coder, torch.cat([self.codes, fl.encode(self.coder, new)]),
+            torch.cat([self.nbr_codes, mirror_new]), _grow_raw(self.raw, new),
+        )
 
     @classmethod
     def from_state(cls, state, *, device: str | torch.device = "cuda") -> "FlashBlockedBackend":

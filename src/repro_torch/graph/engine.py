@@ -118,6 +118,32 @@ def sample_levels(seed: int, n: int, *, r_upper: int, max_layers: int) -> np.nda
     return np.minimum(lv, max_layers - 1)
 
 
+def prefix_entries(
+    levels: np.ndarray, batch: int, *, start: int = 0, entry0: int = -1
+) -> np.ndarray:
+    """Host-side: the entry point of each insert batch — the highest-level
+    vertex among all earlier ids (the first one on ties).
+
+    Batch b inserts ids [start + b·P, start + (b+1)·P). A fresh build uses
+    the defaults; growth (``AnnIndex.add``) passes the old size as ``start``
+    and the live entry as ``entry0``, continuing from the built prefix.
+    """
+    n = len(levels)
+    nb = -(-(n - start) // batch)
+    ent = np.full((nb,), -1, np.int64)
+    best = int(entry0)
+    best_lv = int(levels[best]) if best >= 0 else -1
+    idx = start if best >= 0 else 0
+    for b in range(nb):
+        bstart = start + b * batch
+        while idx < bstart:
+            if levels[idx] > best_lv:
+                best_lv, best = int(levels[idx]), idx
+            idx += 1
+        ent[b] = best
+    return ent.astype(np.int32)
+
+
 # ---------------------------------------------------------------------------
 # Edge commit
 # ---------------------------------------------------------------------------

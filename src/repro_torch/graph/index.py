@@ -2,14 +2,25 @@
 
     index = AnnIndex.build(data, algo="hnsw", backend="flash_blocked")
     res   = index.search(queries, k=10, ef=64)        # exact rerank
+    index.add(new_vectors)    # grow the frozen graph: more insert batches
+    index.delete(ids)         # tombstone: traversable, never returned
+    index.compact()           # purge tombstones, re-insert the vertices
+                              # that lost a neighbor
     meta, arrays = index.export_state()               # the reference's format
     index = AnnIndex.restore(meta, arrays)            # either package's state
 
-This slice ports build (``algo="hnsw"``, ``strategy="bulk"``), search,
-``export_state`` and ``restore``; ``export_state``/``restore`` use exactly
-the reference's ``(meta, arrays)`` layout, so an index built by the JAX
-package restores here and searches identically. ``add``/``delete``/
-``compact`` are still to port (ROADMAP queue 1, item 5b).
+This port covers ``algo="hnsw"`` built with ``strategy="bulk"``, search,
+maintenance, ``clone`` and ``export_state``/``restore``. The state uses
+exactly the reference's ``(meta, arrays)`` layout, so an index built by the
+JAX package restores here and searches identically, and the reverse.
+
+Maintenance is the reference's (DESIGN.md §8): ``add`` runs the new
+vertices through ``BuildEngine.insert_batch`` as more batches of the build
+program (the backend grows through ``backend.extend``, the blocked mirror's
+new rows fill in as edges commit); ``compact`` purges tombstoned ids from
+every row on the host (``_purge_rows``), resyncs the mirror and re-inserts
+every live vertex that lost a neighbor. With the same state and inputs the
+graph, levels, entry, mirror and ``n_dists`` come out bit-equal.
 """
 
 from __future__ import annotations
@@ -21,7 +32,15 @@ import numpy as np
 import torch
 
 from repro_torch.graph import backends as bk
-from repro_torch.graph.engine import BuildParams
+from repro_torch.graph.engine import (
+    BuildEngine,
+    BuildParams,
+    BuildStats,
+    batch_schedule,
+    prefix_entries,
+    run_insert_schedule,
+    sample_levels,
+)
 from repro_torch.graph.hnsw import HNSWIndex, SearchResult, build_hnsw, search_hnsw
 from repro_torch.graph.rerank import SearchSpec, make_reranker, rerank_mode
 from repro_torch.utils import resolve_device, sync
@@ -34,6 +53,26 @@ _KIND_OF_TYPE = {bk.FlashBackend: "flash", bk.FlashBlockedBackend: "flash_blocke
 def _tensor(x, dev, dtype=None) -> torch.Tensor:
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
     return t.to(device=dev, dtype=dtype) if dtype is not None else t.to(dev)
+
+
+def _purge_rows(adj: np.ndarray, adj_d: np.ndarray, dead: np.ndarray):
+    """Drop dead ids from every row (survivors shift left, order kept) and
+    clear dead vertices' own rows. Returns (adj', adj_d', affected), where
+    affected marks live rows that lost at least one neighbor."""
+    keep = (adj >= 0) & ~dead[np.maximum(adj, 0)]
+    affected = ((adj >= 0) & ~keep).any(axis=1) & ~dead
+    order = np.argsort(~keep, axis=1, kind="stable")  # kept slots first
+    adj2 = np.take_along_axis(np.where(keep, adj, -1), order, axis=1)
+    adj_d2 = np.take_along_axis(np.where(keep, adj_d, np.inf), order, axis=1)
+    adj2[dead] = -1
+    adj_d2[dead] = np.inf
+    return adj2, adj_d2.astype(np.float32), affected
+
+
+def _schedule(ids: np.ndarray, batch: int, dev):
+    """(nb, P) id batches and mask on ``dev`` (the engine's host padder)."""
+    ids_p, mask = batch_schedule(ids, batch)
+    return torch.from_numpy(ids_p).to(dev), torch.from_numpy(mask).to(dev)
 
 
 class AnnIndex:
@@ -134,13 +173,35 @@ class AnnIndex:
 
     @property
     def n(self) -> int:
+        """Id slots ever allocated (tombstoned and retired included)."""
         return int(self._data.shape[0])
+
+    @property
+    def n_active(self) -> int:
+        return int(self.n - (self._tombs | self._retired).sum())
+
+    @property
+    def tombstones(self) -> np.ndarray:
+        """Copy of the (n,) tombstone mask (True = deleted, not compacted)."""
+        return self._tombs.copy()
+
+    @property
+    def deleted_ids(self) -> np.ndarray:
+        return np.nonzero(self._tombs)[0]
+
+    def health(self) -> dict:
+        """The degradation surface shared with ``SegmentedAnnIndex``: a single
+        index has no parts to quarantine, so it is healthy once loaded."""
+        return {"healthy": True, "degraded": False, "n": self.n, "n_active": self.n_active}
 
     def __len__(self) -> int:
         return self.n
 
     def __repr__(self) -> str:
-        return f"AnnIndex(algo='hnsw', backend={self.backend_kind!r}, n={self.n}, device={self.device})"
+        return (
+            f"AnnIndex(algo='hnsw', backend={self.backend_kind!r}, n={self.n}, "
+            f"active={self.n_active}, device={self.device})"
+        )
 
     # ---- search ---------------------------------------------------------
 
@@ -249,3 +310,162 @@ class AnnIndex:
         obj._tombs = np.asarray(arrays["tombs"], bool).copy()
         obj._retired = np.asarray(arrays["retired"], bool).copy()
         return obj
+
+    def clone(self) -> "AnnIndex":
+        """A fully independent copy on the same device (through
+        ``export_state``/``restore``): maintenance on either side is
+        invisible to the other."""
+        return type(self).restore(*self.export_state(), device=self.device)
+
+    # ---- dynamic maintenance -------------------------------------------
+    # The reference's _maint_params/_graph_arrays adapt flat graphs
+    # (vamana/nsg) to the layered engine; the port builds HNSW only, so
+    # maintenance uses the build's params and graph arrays as they are.
+
+    def add(self, new_vectors) -> BuildStats:
+        """Insert a batch of vectors into the existing frozen graph.
+
+        No rebuild, no coder refit: the backend grows through
+        ``backend.extend`` and the new vertices run through
+        ``BuildEngine.insert_batch`` like the next batches of the build.
+        New ids are ``range(old_n, old_n + m)`` in input order. Returns the
+        growth's build stats.
+        """
+        dev = self.device
+        new = _tensor(new_vectors, dev, torch.float32)
+        if new.dim() == 1:
+            new = new[None]
+        if new.shape[-1] != self._data.shape[1]:
+            raise ValueError(
+                f"dim mismatch: index is d={self._data.shape[1]}, got d={new.shape[-1]}"
+            )
+        m = int(new.shape[0])
+        if m == 0:
+            return BuildStats(n_dists=0.0, n_hops=0.0)
+        n_old = self.n
+        params = self.params
+        g = self._graph
+        self._n_adds += 1
+
+        # levels and the per-batch entry plan, continued from the built
+        # prefix and seeded with the live entry
+        lv_new = sample_levels(
+            self._seed + 7919 * self._n_adds, m,
+            r_upper=params.r_upper, max_layers=params.max_layers,
+        )
+        levels_all = np.concatenate([g.levels.cpu().numpy(), lv_new]).astype(np.int32)
+        cur = int(g.entry)
+        ent = prefix_entries(levels_all, params.batch, start=n_old, entry0=cur)
+        # a new vertex displaces the entry only if it strictly out-levels it
+        cand = int(np.argmax(levels_all))
+        best = cand if levels_all[cand] > levels_all[cur] else cur
+        ids, mask = _schedule(np.arange(n_old, n_old + m, dtype=np.int32), params.batch, dev)
+
+        r_base = g.adj0.shape[1]
+        adj0 = torch.cat([g.adj0, torch.full((m, r_base), -1, dtype=torch.int32, device=dev)])
+        adj0_d = torch.cat([g.adj0_d, torch.full((m, r_base), float("inf"), device=dev)])
+        l_up, _, r_up = g.adj_up.shape
+        adj_up = torch.cat(
+            [g.adj_up, torch.full((l_up, m, r_up), -1, dtype=torch.int32, device=dev)], 1
+        )
+        adj_up_d = torch.cat([g.adj_up_d, torch.full((l_up, m, r_up), float("inf"), device=dev)], 1)
+        backend = g.backend.extend(new)
+        data_all = torch.cat([self._data, new])
+        levels_t = torch.from_numpy(levels_all).to(dev)
+
+        adj0, adj0_d, adj_up, adj_up_d, backend, acct = run_insert_schedule(
+            BuildEngine(params), data_all, adj0, adj0_d, adj_up, adj_up_d,
+            backend, levels_t, ids, ent, mask,
+        )
+        stats = BuildStats(n_dists=acct.n_dists, n_hops=acct.n_hops, phases=list(acct.phases))
+        self._graph = g._replace(
+            adj0=adj0, adj0_d=adj0_d, adj_up=adj_up, adj_up_d=adj_up_d,
+            levels=levels_t, entry=best, backend=backend,
+        )
+        self._data = data_all
+        self._tombs = np.concatenate([self._tombs, np.zeros(m, bool)])
+        self._retired = np.concatenate([self._retired, np.zeros(m, bool)])
+        self.last_stats = stats
+        return stats
+
+    def delete(self, ids) -> int:
+        """Tombstone vertices: still traversable (the graph stays connected)
+        but never returned by ``search``. Returns the number newly
+        tombstoned; idempotent."""
+        ids = np.atleast_1d(np.asarray(ids, np.int64))
+        if ids.size == 0:
+            return 0
+        if ids.min() < 0 or ids.max() >= self.n:
+            raise IndexError(
+                f"delete ids must be in [0, {self.n}); got [{ids.min()}, {ids.max()}]"
+            )
+        newly = int((~(self._tombs | self._retired)[ids]).sum())
+        self._tombs[ids] = True
+        return newly
+
+    def compact(self) -> BuildStats:
+        """Physically rewire around tombstones.
+
+        Purges tombstoned ids from every adjacency row (and the blocked
+        mirror), clears their own rows, then re-inserts every live vertex
+        that lost a neighbor through the same engine program as ``add``.
+        Tombstoned slots become retired for good (ids are never reused).
+        Returns the rewiring's build stats.
+        """
+        zero = BuildStats(n_dists=0.0, n_hops=0.0)
+        if not self._tombs.any():
+            return zero
+        g = self._graph
+        dev = self.device
+        params = self.params
+        dead = self._tombs.copy()
+        gone = dead | self._retired
+        active = ~gone
+
+        # host-side purge of every layer's rows
+        adj0, adj0_d, affected = _purge_rows(g.adj0.cpu().numpy(), g.adj0_d.cpu().numpy(), dead)
+        up_layers = []
+        for l in range(g.adj_up.shape[0]):
+            a, d, aff = _purge_rows(g.adj_up[l].cpu().numpy(), g.adj_up_d[l].cpu().numpy(), dead)
+            up_layers.append((a, d))
+            affected |= aff
+        affected &= active
+
+        # the new entry over the survivors
+        levels = g.levels.cpu().numpy().copy()
+        levels[gone] = 0
+        entry = int(np.argmax(np.where(active, levels, -1))) if active.any() else int(g.entry)
+
+        adj0_t = torch.from_numpy(adj0).to(dev)
+        adj0_d_t = torch.from_numpy(adj0_d).to(dev)
+        if up_layers:
+            adj_up_t = torch.from_numpy(np.stack([a for a, _ in up_layers])).to(dev)
+            adj_up_d_t = torch.from_numpy(np.stack([d for _, d in up_layers])).to(dev)
+        else:
+            adj_up_t, adj_up_d_t = g.adj_up[:0].clone(), g.adj_up_d[:0].clone()
+        # resync the blocked mirror with the purged base layer (on a copy:
+        # the mirror is written in place)
+        backend = g.backend.clone().with_updated_edges(
+            torch.arange(self.n, dtype=torch.int32, device=dev), adj0_t
+        )
+        levels_t = torch.from_numpy(levels).to(dev)
+
+        stats = zero
+        aff_ids = np.nonzero(affected)[0].astype(np.int32)
+        if aff_ids.size:
+            ids, mask = _schedule(aff_ids, params.batch, dev)
+            ent = np.full((ids.shape[0],), entry, np.int32)
+            adj0_t, adj0_d_t, adj_up_t, adj_up_d_t, backend, acct = run_insert_schedule(
+                BuildEngine(params), self._data, adj0_t, adj0_d_t, adj_up_t, adj_up_d_t,
+                backend, levels_t, ids, ent, mask,
+            )
+            stats = BuildStats(n_dists=acct.n_dists, n_hops=acct.n_hops, phases=list(acct.phases))
+
+        self._graph = g._replace(
+            adj0=adj0_t, adj0_d=adj0_d_t, adj_up=adj_up_t, adj_up_d=adj_up_d_t,
+            levels=levels_t, entry=entry, backend=backend,
+        )
+        self._retired |= dead
+        self._tombs = np.zeros(self.n, bool)
+        self.last_stats = stats
+        return stats

@@ -5,8 +5,10 @@ ids with backend-scale distances; the rerank re-scores exactly those
 candidates at full precision and takes the true top-k. :class:`SearchSpec`
 freezes the read-side configuration into one hashable value.
 
-This slice ports the "exact" and "none" stages; "reconstruct" (decoding
-codes instead of keeping raw vectors) is still to port.
+``merge_rerank_topk`` is the coordinator's second stage over several
+sources' candidates (``SegmentedAnnIndex.search``). The port has the
+"exact" and "none" stages; "reconstruct" (decoding codes instead of keeping
+raw vectors) is still to port.
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ import dataclasses
 import torch
 
 from repro_torch.graph.beam import INF, stable_smallest
+
+#: (query × candidate × dim) elements one merge block gathers for rerank
+_MERGE_BUDGET = 1 << 27
 
 #: valid ``SearchSpec.rerank`` modes, production default first
 RERANK_MODES = ("exact", "none", "reconstruct")
@@ -51,6 +56,12 @@ class SearchSpec:
         if self.rerank_mult is None:
             return self.ef
         return min(self.ef, self.k * self.rerank_mult)
+
+    def scan_spec(self) -> "SearchSpec":
+        """The candidate half of this spec: the same beam, no second stage,
+        ``n_keep`` results — what a segment runs before the coordinator
+        reranks the union (``merge_rerank_topk``)."""
+        return SearchSpec(k=self.n_keep, ef=self.ef, width=self.width, rerank="none")
 
 
 def rerank_mode(rerank) -> str:
@@ -123,3 +134,39 @@ def rerank_topk(reranker, q, cand_ids, cand_dists, k: int):
         n_rerank = valid.sum(1)
     vals, idx = stable_smallest(scored, k)
     return cand_ids.gather(1, idx), vals, n_rerank
+
+
+def merge_rerank_topk(reranker, queries, cand_ids, cand_dists, k: int):
+    """Cross-source merge: dedup by id, re-score once, global top-k.
+
+    queries (Q, d); cand_ids (Q, C) global ids, −1 padded; cand_dists (Q, C)
+    the carried scan distances (the key only when ``reranker`` is None).
+    A repeated id keeps its first slot only (stable sort by id, followers
+    struck), so nothing is scored or returned twice. Ties in the top-k go
+    to the lower slot. Returns (ids (Q, k), dists (Q, k), n_rerank int);
+    slots past the available candidates are −1 / +inf. Queries run in
+    blocks that bound the gathered (Q_b, C, d) rerank rows.
+    """
+    q, c = cand_ids.shape
+    _, order = torch.sort(cand_ids, dim=-1, stable=True)
+    sorted_ids = cand_ids.gather(1, order)
+    adj_dup = torch.zeros_like(sorted_ids, dtype=torch.bool)
+    adj_dup[:, 1:] = sorted_ids[:, 1:] == sorted_ids[:, :-1]
+    dup = torch.empty_like(adj_dup).scatter_(1, order, adj_dup)  # undo the sort
+    valid = (cand_ids >= 0) & ~dup
+    if reranker is None:
+        scored = torch.where(valid, cand_dists.to(torch.float32), INF)
+        n_rerank = 0
+    else:
+        block = max(1, _MERGE_BUDGET // max(1, c * queries.shape[1]))
+        safe = cand_ids.clamp_min(0)
+        scored = torch.cat([
+            reranker.dists(queries[s:s + block], safe[s:s + block])
+            for s in range(0, q, block)
+        ])
+        scored = torch.where(valid, scored, INF)
+        n_rerank = int(valid.sum())
+    dists, idx = stable_smallest(scored, k)
+    ids = cand_ids.gather(1, idx)
+    ids = torch.where(torch.isinf(dists), -1, ids)
+    return ids, dists, n_rerank

@@ -1,0 +1,353 @@
+"""Segmented index: S independent facades + a coordinator, in PyTorch
+(reference: repro.graph.segmented.SegmentedAnnIndex).
+
+Production vector databases shard a collection into segments, build each
+segment's index on its own and fan queries out; a coordinator merges the
+per-segment candidates. This is that serving form on one card:
+
+  * global ids are stable insertion order across the collection; the
+    coordinator's ``locate`` table maps an id to (segment, local id);
+  * search fans out to every segment's scan half (``spec.scan_spec()``),
+    on ``fanout_map``'s threads only when the segments span more than one
+    device, and merges the union through
+    ``merge_rerank_topk``: dedup by global id, one exact re-score on the
+    collection's raw vectors, global top-k. Quantized sums are only
+    comparable within one coder, so a cross-segment merge re-scores;
+  * ``add`` routes each new vector to the segment with the nearest frozen
+    centroid (``ops.nearest_centroid``, kernel ``csrc/l2_batch.cu``) and
+    grows that segment in place; ``delete``/``compact`` map global ids to
+    their segments.
+
+The stacked ``shard_map`` deployment programs of the reference
+(``make_segmented_build_fn`` and its search twin) become multi-GPU
+``torch.distributed`` work (ROADMAP queue 1, item 7) and are not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.graph.beam import INF
+from repro_torch.graph.engine import BuildParams
+from repro_torch.graph.hnsw import SearchResult
+from repro_torch.graph.index import AnnIndex
+from repro_torch.graph.rerank import (
+    ExactReranker,
+    RawVectors,
+    SearchSpec,
+    merge_rerank_topk,
+    rerank_mode,
+)
+from repro_torch.kernels import ops
+from repro_torch.utils import resolve_device
+
+
+class SegmentedAnnIndex:
+    """S :class:`AnnIndex` segments on one device + the coordinator state:
+    the frozen (S, D) routing table, the per-segment local→global id maps
+    and the (N, 2) global→(segment, local) locator (host numpy)."""
+
+    def __init__(self, segments, centroids, global_of, locate):
+        self.segments = segments  # list[AnnIndex | None] (None = lost)
+        self._centroids = centroids  # (S, D) float32 tensor (frozen)
+        self._global_of = global_of  # list[np int64]: local -> global
+        self._locate = locate  # np (N, 2): global -> (seg, local)
+        self._raw_cache = None  # (N, D) rerank corpus, built lazily
+        #: segments lost at restore: their ids stay allocated, never served
+        self._quarantined = frozenset(s for s, seg in enumerate(segments) if seg is None)
+
+    @classmethod
+    def build(
+        cls,
+        data_segs,
+        *,
+        algo: str = "hnsw",
+        backend: str = "flash_blocked",
+        params: BuildParams | None = None,
+        seed: int = 0,
+        backend_kwargs: dict | None = None,
+        strategy: str = "bulk",
+        device: str | torch.device = "cuda",
+    ) -> "SegmentedAnnIndex":
+        """data_segs: (S, n_s, D) array or an iterable of per-segment
+        (n_s, D) arrays, built one at a time (segment s with seed
+        ``seed + s``); the routing table is the segments' means."""
+        dev = resolve_device(device)
+        segments, global_of, means = [], [], []
+        next_gid = 0
+        for s, seg_data in enumerate(data_segs):
+            seg = AnnIndex.build(
+                seg_data, algo=algo, backend=backend, params=params, seed=seed + s,
+                backend_kwargs=backend_kwargs, strategy=strategy, device=dev,
+            )
+            segments.append(seg)
+            means.append(seg.data.mean(0).cpu().numpy())
+            global_of.append(np.arange(next_gid, next_gid + seg.n, dtype=np.int64))
+            next_gid += seg.n
+        return cls.from_parts(segments, np.stack(means), global_of, device=dev)
+
+    @classmethod
+    def from_parts(cls, segments, centroids, global_of, *,
+                   device: str | torch.device = "cuda") -> "SegmentedAnnIndex":
+        """Assemble a collection from already-built segments and the routing
+        state; ``global_of`` may be any partition of [0, N)."""
+        dev = resolve_device(device)
+        global_of = [np.asarray(g, np.int64) for g in global_of]
+        n = sum(int(g.shape[0]) for g in global_of)
+        locate = np.empty((n, 2), np.int64)
+        for s, gids in enumerate(global_of):
+            locate[gids, 0] = s
+            locate[gids, 1] = np.arange(gids.shape[0])
+        cent = torch.from_numpy(np.array(centroids, np.float32)).to(dev)
+        return cls(segments, cent, global_of, locate)
+
+    @classmethod
+    def build_streaming(
+        cls,
+        source,
+        *,
+        n_segments: int,
+        chunk_size: int = 65536,
+        workers: int | None = None,
+        mesh=None,
+        workdir: str | None = None,
+        snapshot_path: str | None = None,
+        algo: str = "hnsw",
+        backend: str = "flash_blocked",
+        params: BuildParams | None = None,
+        seed: int = 0,
+        backend_kwargs: dict | None = None,
+        strategy: str = "bulk",
+        device: str | torch.device = "cuda",
+        **algo_kwargs,
+    ) -> "SegmentedAnnIndex":
+        """Build from a chunked stream through the sharded pipeline:
+        streaming nearest-centroid assignment, then the per-segment builds
+        (inline; see :class:`repro_torch.graph.sharded.ShardedBuilder`)."""
+        from repro_torch.graph.sharded import ShardConfig, ShardedBuilder
+
+        builder = ShardedBuilder(
+            ShardConfig(
+                n_segments=n_segments, chunk_size=chunk_size, algo=algo,
+                backend=backend, params=params, strategy=strategy,
+                backend_kwargs=backend_kwargs, algo_kwargs=algo_kwargs, seed=seed,
+            ),
+            workers=workers, mesh=mesh, workdir=workdir, device=device,
+        )
+        return builder.build(source, snapshot_path=snapshot_path).index
+
+    # ---- introspection --------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        return self._centroids.device
+
+    @property
+    def n(self) -> int:
+        return int(self._locate.shape[0])
+
+    def __len__(self) -> int:
+        return self.n
+
+    @property
+    def n_active(self) -> int:
+        return sum(s.n_active for s in self.segments if s is not None)
+
+    @property
+    def quarantined(self) -> frozenset:
+        """Segments lost at restore (empty when healthy)."""
+        return self._quarantined
+
+    def health(self) -> dict:
+        """Which segments are quarantined and how many ids that strands."""
+        lost = sum(len(self._global_of[s]) for s in self._quarantined)
+        return {
+            "healthy": not self._quarantined,
+            "degraded": bool(self._quarantined),
+            "n": self.n,
+            "n_active": self.n_active,
+            "n_segments": len(self.segments),
+            "quarantined": sorted(self._quarantined),
+            "lost_ids": int(lost),
+            "lost_fraction": float(lost) / self.n if self.n else 0.0,
+        }
+
+    @property
+    def centroids(self) -> torch.Tensor:
+        """(S, D) frozen routing table."""
+        return self._centroids
+
+    def global_ids(self, s: int) -> np.ndarray:
+        """Copy of segment ``s``'s local→global id map."""
+        return np.asarray(self._global_of[s], np.int64).copy()
+
+    @property
+    def raw_vectors(self) -> torch.Tensor:
+        """(N, D) raw vectors in global id order — the collection's rerank
+        corpus, assembled on the device from the segments' tables (zeros
+        for quarantined segments' rows, which search never surfaces);
+        rebuilt after ``add``."""
+        if self._raw_cache is None or int(self._raw_cache.shape[0]) != self.n:
+            d = int(self._centroids.shape[1])
+            out = torch.zeros((self.n, d), dtype=torch.float32, device=self.device)
+            for s, seg in enumerate(self.segments):
+                if seg is not None:
+                    out[torch.from_numpy(self._global_of[s]).to(self.device)] = seg.data
+            self._raw_cache = out
+        return self._raw_cache
+
+    def reranker(self, mode: str = "exact"):
+        """The collection's second stage (None for "none"): exact squared
+        L2 over :attr:`raw_vectors`. "reconstruct" decodes per coder, so a
+        cross-segment merge rejects it."""
+        mode = rerank_mode(mode)
+        if mode == "none":
+            return None
+        if mode == "reconstruct":
+            raise ValueError(
+                "reconstruct rerank is per-coder; a cross-segment merge "
+                "needs rerank='exact' (or 'none' for single-coder fleets)"
+            )
+        return ExactReranker(RawVectors(self.raw_vectors))
+
+    # ---- state ----------------------------------------------------------
+
+    def export_state(self) -> tuple[dict, dict, list]:
+        """(meta, coordinator arrays, per-segment ``AnnIndex.export_state``
+        tuples), the reference's layout."""
+        if self._quarantined:
+            raise RuntimeError(
+                f"cannot export a degraded collection: segments "
+                f"{sorted(self._quarantined)} are quarantined"
+            )
+        meta = {"n_segments": len(self.segments)}
+        arrays = {
+            "centroids": self._centroids.cpu().numpy(),
+            "locate": self._locate.copy(),
+        }
+        for s, gids in enumerate(self._global_of):
+            arrays[f"global_of.{s}"] = np.asarray(gids, np.int64)
+        return meta, arrays, [seg.export_state() for seg in self.segments]
+
+    @classmethod
+    def restore(cls, meta: dict, arrays: dict, segments: list, *,
+                device: str | torch.device = "cuda") -> "SegmentedAnnIndex":
+        """Inverse of :meth:`export_state` (either package's) on ``device``;
+        a ``None`` segment restores as quarantined."""
+        dev = resolve_device(device)
+        segs = [
+            None if st is None else AnnIndex.restore(st[0], st[1], device=dev)
+            for st in segments
+        ]
+        global_of = [
+            np.asarray(arrays[f"global_of.{s}"], np.int64)
+            for s in range(int(meta["n_segments"]))
+        ]
+        cent = torch.from_numpy(np.array(arrays["centroids"], np.float32)).to(dev)
+        return cls(segs, cent, global_of, np.asarray(arrays["locate"], np.int64).copy())
+
+    # ---- search ---------------------------------------------------------
+
+    def search(
+        self, queries, k: int = 10, *, ef: int = 64, width: int = 1,
+        rerank: bool | str = True, rerank_mult: int | None = None,
+        spec: SearchSpec | None = None, fanout: bool | None = None,
+    ) -> SearchResult:
+        """Fan out to every live segment, merge the global top-k.
+
+        Each segment runs the scan half only (``spec.scan_spec()``); the
+        coordinator dedups the union by global id, re-scores it once and
+        takes the top k (``merge_rerank_topk``). ``fanout=True`` runs the
+        segment scans on the fan-out threads, ``fanout=False`` in a loop;
+        the default takes the threads only when the live segments lie on
+        more than one device (on one card every thread enqueues on the same
+        stream, and the loop is faster). Results are merged positionally and
+        are equal either way.
+        """
+        from repro_torch.graph.sharded import fanout_map
+
+        dev = self.device
+        queries = torch.as_tensor(queries, dtype=torch.float32).to(dev)
+        if spec is None:
+            spec = SearchSpec(k=k, ef=ef, width=width, rerank=rerank_mode(rerank),
+                              rerank_mult=rerank_mult)
+        reranker = self.reranker(spec.rerank)  # fail fast on bad modes
+        scan = spec.scan_spec()
+        live = [(s, seg) for s, seg in enumerate(self.segments) if seg is not None]
+
+        def scan_one(item):
+            s, seg = item
+            res = seg.search(queries, spec=scan)
+            gids = torch.from_numpy(self._global_of[s].astype(np.int32)).to(dev)
+            ok = res.ids >= 0
+            ids = torch.where(ok, gids[res.ids.clamp_min(0).long()], -1)
+            return ids, torch.where(ok, res.dists, INF), res.n_scan
+
+        if fanout is None:
+            fanout = len({seg.device for _, seg in live}) > 1
+        results = fanout_map(scan_one, live, parallel=fanout)
+        n_scan = sum(int(r[2]) for r in results)
+        cat_ids = torch.cat([r[0] for r in results], 1)  # (Q, S·n_keep)
+        cat_d = torch.cat([r[1] for r in results], 1)
+        ids, dists, n_rerank = merge_rerank_topk(reranker, queries, cat_ids, cat_d, spec.k)
+        return SearchResult(
+            ids=ids.to(torch.int32), dists=dists, n_dists=n_scan + n_rerank,
+            n_scan=n_scan, n_rerank=n_rerank,
+        )
+
+    # ---- maintenance ----------------------------------------------------
+
+    def add(self, new_vectors) -> np.ndarray:
+        """Route each new vector to the nearest-centroid segment (never a
+        quarantined one) and grow that segment in place. Returns the global
+        ids assigned, in input order."""
+        new = torch.as_tensor(new_vectors, dtype=torch.float32).to(self.device)
+        if new.dim() == 1:
+            new = new[None]
+        banned = None
+        if self._quarantined:
+            banned = torch.zeros(len(self.segments), dtype=torch.bool, device=self.device)
+            banned[sorted(self._quarantined)] = True
+        route, _ = ops.nearest_centroid(new, self._centroids, banned=banned)
+        route = route.cpu().numpy()
+        m = int(new.shape[0])
+        gids = self.n + np.arange(m, dtype=np.int64)
+        new_locate = np.empty((m, 2), np.int64)
+        self._raw_cache = None  # the collection's rerank corpus grows
+        for s, seg in enumerate(self.segments):
+            rows = np.nonzero(route == s)[0]
+            if rows.size == 0:
+                continue
+            local0 = seg.n
+            seg.add(new[torch.from_numpy(rows).to(self.device)])
+            self._global_of[s] = np.concatenate([self._global_of[s], gids[rows]])
+            new_locate[rows, 0] = s
+            new_locate[rows, 1] = local0 + np.arange(rows.size)
+        self._locate = np.concatenate([self._locate, new_locate])
+        return gids
+
+    def delete(self, global_ids) -> int:
+        """Tombstone by global id; returns the number newly tombstoned."""
+        gids = np.atleast_1d(np.asarray(global_ids, np.int64))
+        if gids.size == 0:
+            return 0
+        if gids.min() < 0 or gids.max() >= self.n:
+            raise IndexError(
+                f"global ids must be in [0, {self.n}); got [{gids.min()}, {gids.max()}]"
+            )
+        n_new = 0
+        loc = self._locate[gids]
+        for s, seg in enumerate(self.segments):
+            if seg is None:
+                continue  # id already unreachable
+            local = loc[loc[:, 0] == s, 1]
+            if local.size:
+                n_new += seg.delete(local)
+        return n_new
+
+    def compact(self) -> None:
+        """Compact every segment (purge + rewire, ``AnnIndex.compact``)."""
+        for seg in self.segments:
+            if seg is not None:
+                seg.compact()

@@ -1,4 +1,4 @@
-"""Build and load the Flash CUDA kernels (``csrc/*.cu``) at first use.
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, all sources at once (one ``nvcc``
@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -30,6 +31,7 @@ SOURCES = {
     "flash_round": "flash_round.cu",
     "flash_expand": "flash_expand.cu",
     "flash_scan_blocked": "flash_scan_blocked.cu",
+    "l2_batch": "l2_batch.cu",
 }
 
 NVCC_FLAGS = [
@@ -49,9 +51,11 @@ SIGNATURES = {
     "flash_scan_blocked": (
         "repro_flash_scan_blocked", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
+    "l2_batch": ("repro_l2_batch", [_P, _P, _P, _I, _I, _I, _P]),
 }
 
 _FNS: dict = {}  # kernel name -> its loaded ctypes entry point
+_LOAD_LOCK = threading.Lock()  # the fan-out threads may ask for a kernel at once
 #: ptxas report (registers, shared memory, spills) of the last build, by kernel
 PTXAS_LOG: dict[str, str] = {}
 
@@ -63,7 +67,7 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the Flash kernels are built on the card's machine")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the card's machine")
 
 
 def _lib_path(name: str) -> Path:
@@ -103,7 +107,7 @@ def build_all() -> float:
         else:
             os.replace(tmp, _lib_path(name))
     if failed:
-        raise RuntimeError("building the Flash kernels failed:\n" + "\n".join(failed))
+        raise RuntimeError("building the CUDA kernels failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
 
 
@@ -111,11 +115,14 @@ def kernel(name: str):
     """The ctypes entry point of kernel ``name``, building it if needed."""
     fn = _FNS.get(name)
     if fn is None:
-        build_all()
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        sym, argtypes = SIGNATURES[name]
-        fn = getattr(lib, sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
+        with _LOAD_LOCK:
+            fn = _FNS.get(name)
+            if fn is None:
+                build_all()
+                lib = ctypes.CDLL(str(_lib_path(name)))
+                sym, argtypes = SIGNATURES[name]
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _FNS[name] = fn
     return fn

@@ -1,11 +1,14 @@
-"""Wrappers of the three Flash kernels.
+"""Wrappers of the port's CUDA kernels: the three Flash kernels and
+``l2_batch``.
 
 Dispatch is by where the tensors lie: CPU tensors take the plain PyTorch
 version in ``ref.py`` (the CPU tests' path); CUDA tensors launch the
 hand-written kernel from ``csrc/`` or raise on a dtype, shape or layout the
 kernel does not take — there is no fallback. Each wrapper adds one to
-``launches[<kernel>]`` where it launches, and nowhere else, so a run can
-show that its main path went through the kernels.
+``launches[<kernel>]`` where it launches (:func:`count_launch`, under one
+lock: the segmented search calls the wrappers from ``fanout_map``'s
+threads), and nowhere else, so a run can show that its main path went
+through the kernels.
 
 Kernel notes (each source in ``csrc/`` carries the full note):
 
@@ -19,13 +22,20 @@ Kernel notes (each source in ``csrc/`` carries the full note):
 * ``flash_scan_blocked`` replaces
   ``repro/kernels/flash_scan.py::flash_scan_blocked_pallas``. Bound by the
   (G, M, B) code bytes; warps read one subspace's B codes as one line.
+* ``l2_batch`` replaces ``repro/kernels/l2_batch.py::l2_batch_pallas``.
+  Bound by its 2·N·C·D float32 FMA operations (about equal to its bytes at
+  the assignment chunk). 64 × 64 output tiles, 4 × 4 per thread, D staged
+  32 columns at a time in shared memory, norms summed in-kernel.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.utils import first_argmin
 
 #: launches of each CUDA kernel since the last reset (plain int counters)
 launches: dict[str, int] = {
@@ -33,15 +43,31 @@ launches: dict[str, int] = {
     "flash_expand": 0,
     "flash_scan_blocked": 0,
     "flash_scan_batch": 0,
+    "l2_batch": 0,
 }
+
+_LAUNCH_LOCK = threading.Lock()
+
+#: column tiles l2_batch's grid may hold (CUDA's grid.y limit)
+_L2_TILE = 64
+_MAX_GRID_Y = 65535
 
 #: largest per-block table the kernels stage (static shared memory limit)
 _MAX_TABLE_BYTES = 48 * 1024
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _LAUNCH_LOCK:
+        for k in launches:
+            launches[k] = 0
+
+
+def count_launch(*names: str) -> None:
+    """Add one launch to each named counter, atomically (the read-modify-
+    write of ``+= 1`` is not atomic across threads)."""
+    with _LAUNCH_LOCK:
+        for name in names:
+            launches[name] += 1
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -98,7 +124,7 @@ def flash_round(codes: torch.Tensor, adts: torch.Tensor) -> torch.Tensor:
         is_float, vec4, _stream(codes),
     )
     _raise_on("flash_round", err)
-    launches["flash_round"] += 1
+    count_launch("flash_round")
     return out
 
 
@@ -147,17 +173,26 @@ def flash_expand(
         _stream(nodes),
     )
     _raise_on("flash_expand", err)
-    launches["flash_expand"] += 1
+    count_launch("flash_expand")
     return rows, sums
 
 
 def flash_scan_blocked(blocks: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
     """Blocked-layout ADT scan: blocks (G, M, B) with adt (M, K) -> (G, B),
     or batched blocks (Q, G, M, B) with adt (Q, M, K) -> (Q, G, B)."""
+    out, launched = _flash_scan_blocked(blocks, adt)
+    if launched:
+        count_launch("flash_scan_blocked")
+    return out
+
+
+def _flash_scan_blocked(blocks: torch.Tensor, adt: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """``flash_scan_blocked``'s work: (result, whether the kernel launched)."""
     if blocks.device.type == "cpu":
-        return ref.flash_scan_blocked(blocks, adt)
+        return ref.flash_scan_blocked(blocks, adt), False
     if blocks.dim() == 3 and adt.dim() == 2:
-        return flash_scan_blocked(blocks[None], adt[None])[0]
+        out, launched = _flash_scan_blocked(blocks[None], adt[None])
+        return out[0], launched
     if blocks.dim() != 4 or adt.dim() != 3:
         raise ValueError(
             f"flash_scan_blocked: blocks {tuple(blocks.shape)} / adt {tuple(adt.shape)} "
@@ -174,14 +209,13 @@ def flash_scan_blocked(blocks: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
     _check_table_size("flash_scan_blocked", m, k)
     out = torch.empty((q, g, b), dtype=adt.dtype, device=blocks.device)
     if q == 0 or g == 0 or b == 0:
-        return out
+        return out, False
     err = build.kernel("flash_scan_blocked")(
         blocks.data_ptr(), adt.data_ptr(), out.data_ptr(), q, g, m, b, k,
         is_float, _stream(blocks),
     )
     _raise_on("flash_scan_blocked", err)
-    launches["flash_scan_blocked"] += 1
-    return out
+    return out, True
 
 
 def flash_scan_batch(rows: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
@@ -192,7 +226,45 @@ def flash_scan_batch(rows: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
     if rows.shape[-1] != adt.shape[-2]:
         raise ValueError(f"rows M={rows.shape[-1]} != adt M={adt.shape[-2]}")
     blocks = rows.transpose(-1, -2).contiguous()
-    before = launches["flash_scan_blocked"]
-    out = flash_scan_blocked(blocks, adt)
-    launches["flash_scan_batch"] += launches["flash_scan_blocked"] - before
+    out, launched = _flash_scan_blocked(blocks, adt)
+    if launched:
+        count_launch("flash_scan_blocked", "flash_scan_batch")
     return out
+
+
+def l2_batch(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared L2: x (N, D), y (C, D) float32 -> (N, C) float32,
+    ``max(‖x‖² + ‖y‖² − 2·x·yᵀ, 0)``."""
+    if x.device.type == "cpu":
+        return ref.l2_batch(x, y)
+    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
+        raise ValueError(f"l2_batch: x {tuple(x.shape)} and y {tuple(y.shape)} must be (N, D) and (C, D)")
+    if x.dtype != torch.float32 or y.dtype != torch.float32:
+        raise TypeError(f"l2_batch: x and y must be float32, got {x.dtype} and {y.dtype}")
+    _check_cuda("l2_batch", x.device, x=x, y=y)
+    n, d = x.shape
+    c = y.shape[0]
+    if -(-c // _L2_TILE) > _MAX_GRID_Y or n >= 2 ** 31 or c >= 2 ** 31:
+        raise ValueError(f"l2_batch: (N={n}, C={c}) exceeds the kernel's grid")
+    out = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    if n == 0 or c == 0:
+        return out
+    err = build.kernel("l2_batch")(x.data_ptr(), y.data_ptr(), out.data_ptr(), n, c, d, _stream(x))
+    _raise_on("l2_batch", err)
+    count_launch("l2_batch")
+    return out
+
+
+def nearest_centroid(
+    x: torch.Tensor, centroids: torch.Tensor, *, banned: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest-centroid routing: x (N, D), centroids (S, D) -> (route (N,)
+    int32, d2 (N,) float32). The distance matrix is one ``l2_batch``; the
+    optional (S,) bool ``banned`` mask (quarantined segments) sets its
+    columns to +inf, and the argmin takes the FIRST minimum (``jnp.argmin``'s
+    rule), as the reference does outside its Pallas kernel."""
+    d2 = l2_batch(x, centroids)
+    if banned is not None:
+        d2 = torch.where(banned.to(d2.device)[None, :], float("inf"), d2)
+    route = first_argmin(d2, 1)
+    return route.to(torch.int32), d2.gather(1, route[:, None])[:, 0]

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the three Flash kernels.
+"""Plain PyTorch versions of the port's kernels (the Flash kernels and
+``l2_batch``).
 
 Each function is the semantic ground truth of its CUDA kernel in
 ``csrc/``: the wrappers in ``ops.py`` take these for CPU tensors, the CPU
@@ -64,3 +65,14 @@ def flash_scan_blocked(blocks: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
     qi = torch.arange(q, device=adt.device)[:, None, None, None]
     mi = torch.arange(m, device=adt.device)[None, None, :, None]
     return adt[qi, mi, blocks.long()].sum(-2).to(adt.dtype)
+
+
+def l2_batch(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared L2: x (N, D), y (C, D) -> (N, C) float32,
+    ``max(‖x‖² + ‖y‖² − 2·x·yᵀ, 0)`` (the matrix product in full float32
+    on the card as long as TF32 is off, which the port never turns on)."""
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    x2 = (x * x).sum(-1, keepdim=True)
+    y2 = (y * y).sum(-1)
+    return torch.clamp_min(x2 + y2[None, :] - 2.0 * (x @ y.T), 0.0)

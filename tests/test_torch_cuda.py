@@ -1,4 +1,4 @@
-"""The CUDA Flash kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA card with ``nvcc`` (the kernels are built at
 first use); they carry the ``cuda`` marker and skip without one. They
@@ -9,6 +9,10 @@ suite's conftest imports JAX):
 
 Int32 tables must give equal sums; float32 tables allclose with rtol 1e-5
 and atol 1e-5·M·max|table| (the kernel sums in another order).
+``l2_batch`` is allclose with rtol 1e-5 and atol 1e-5·max(‖x‖² + ‖y‖²)
+against the plain version with TF32 off, and ``nearest_centroid``'s
+routes are equal except where the two nearest centroids are within that
+atol of each other (a near tie, counted and bounded).
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ def _check(got, want, table: np.ndarray, m: int):
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the Flash kernels are CUDA C++ for sm_90a")
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -100,3 +105,56 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     before = tops.launches["flash_scan_batch"]
     tops.flash_scan_batch(torch.zeros((2, 0, 32, 16), dtype=torch.int32, device=cuda_device), adts[:2])
     assert tops.launches["flash_scan_batch"] == before  # nothing to launch on an empty batch
+
+
+def _l2_atol(x: torch.Tensor, y: torch.Tensor) -> float:
+    return 1e-5 * float((x * x).sum(1).max() + (y * y).sum(1).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,d", [(1000, 8192, 128), (65536, 64, 128), (37, 70, 48), (5, 1, 3)])
+def test_cuda_l2_batch(cuda_device, n, c, d):
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(n + c + d)
+    x = torch.randn((n, d), generator=g, device=cuda_device) * 3.0
+    y = torch.randn((c, d), generator=g, device=cuda_device) * 3.0
+    y[0] = x[0]
+    before = tops.launches["l2_batch"]
+    got = tops.l2_batch(x, y)
+    torch.cuda.synchronize()
+    assert tops.launches["l2_batch"] == before + 1
+    want = tref.l2_batch(x, y)
+    assert torch.allclose(got, want, rtol=1e-5, atol=_l2_atol(x, y))
+    assert float(got.min()) >= 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_nearest_centroid(cuda_device):
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(3)
+    x = torch.randn((2000, 128), generator=g, device=cuda_device)
+    cents = torch.randn((64, 128), generator=g, device=cuda_device)
+    banned = torch.zeros(64, dtype=torch.bool, device=cuda_device)
+    banned[[1, 7]] = True
+    route, d2 = tops.nearest_centroid(x, cents, banned=banned)
+    plain = tref.l2_batch(x, cents).masked_fill(banned[None], float("inf"))
+    atol = _l2_atol(x, cents)
+    two = plain.topk(2, 1, largest=False).values
+    near_tie = (two[:, 1] - two[:, 0]) <= 2 * atol
+    want = plain.argmin(1).to(torch.int32)
+    diff = route != want
+    assert not bool((diff & ~near_tie).any()), "a route differs away from a near tie"
+    assert int(diff.sum()) <= max(1, int(near_tie.sum()))
+    assert not bool(banned[route.long()].any())
+    assert torch.allclose(d2, plain.gather(1, route[:, None].long())[:, 0], rtol=1e-5, atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_l2_batch_raises_on_what_it_does_not_take(cuda_device):
+    x = torch.zeros((4, 8), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(TypeError):
+        tops.l2_batch(x, x)
+    with pytest.raises(ValueError):
+        tops.l2_batch(x.float(), torch.zeros((4, 7), device=cuda_device))
+    with pytest.raises(ValueError):
+        tops.l2_batch(x.float()[:, ::2], x.float()[:, ::2])

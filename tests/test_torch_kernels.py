@@ -1,4 +1,4 @@
-"""The port's Flash kernels against the reference package's kernels.
+"""The port's kernels against the reference package's kernels.
 
 On the CPU each wrapper in ``repro_torch.kernels.ops`` runs its plain
 PyTorch version; these tests hold that version against the reference's
@@ -6,8 +6,11 @@ jnp oracle (``repro.kernels.ref``) and its Pallas kernel in interpret mode
 (``repro.kernels.ops.*(impl="interpret")``), on the same numpy inputs, over
 both mirror layouts and both table dtypes. Integer tables must be equal;
 float32 tables allclose with rtol 1e-5 and atol 1e-5·M·max|table| (the
-sums run in another order). The CUDA kernels themselves are held
-against the same plain versions on the card by ``test_torch_cuda.py``.
+sums run in another order). ``l2_batch`` is held with rtol 1e-5 and
+atol 1e-5·max(‖x‖² + ‖y‖²) (the float32 products sum in another order and
+x2 + y2 − 2xy cancels), and its routes (``nearest_centroid``) must be
+equal. The CUDA kernels themselves are held against the same plain
+versions on the card by ``test_torch_cuda.py``.
 """
 
 from __future__ import annotations
@@ -158,3 +161,47 @@ def test_cuda_device_without_a_card_raises():
         pytest.skip("a CUDA card is present; this checks the CPU-only behaviour")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
+
+
+def _l2_atol(x: np.ndarray, y: np.ndarray) -> float:
+    return 1e-5 * float((x * x).sum(1).max() + (y * y).sum(1).max())
+
+
+@pytest.mark.parametrize("n,c,d", [(37, 4, 48), (130, 70, 48), (5, 1, 3)])
+def test_l2_batch_matches_reference(n, c, d):
+    rng = np.random.default_rng(n + c + d)
+    x = rng.normal(size=(n, d)).astype(np.float32) * 2.0
+    y = rng.normal(size=(c, d)).astype(np.float32) * 2.0
+    y[0] = x[0]  # one exact zero distance: the clamp at 0
+    got = tops.l2_batch(torch.from_numpy(x), torch.from_numpy(y))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n, c)
+    atol = _l2_atol(x, y)
+    want = np.asarray(jref.l2_batch_ref(jnp.asarray(x), jnp.asarray(y)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=atol)
+    interp = np.asarray(jops.l2_batch(jnp.asarray(x), jnp.asarray(y), impl="interpret"))
+    np.testing.assert_allclose(got.numpy(), interp, rtol=1e-5, atol=atol)
+    assert float(got.min()) >= 0.0
+
+
+@pytest.mark.parametrize("with_banned", [False, True])
+def test_nearest_centroid_matches_reference(with_banned):
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(300, 48)).astype(np.float32)
+    cents = rng.normal(size=(70, 48)).astype(np.float32)
+    cents[5] = cents[3]  # an exact tie: the first index must win
+    banned = np.zeros(70, bool)
+    if with_banned:
+        banned[[0, 3, 11]] = True
+    tb = torch.from_numpy(banned) if with_banned else None
+    jb = jnp.asarray(banned) if with_banned else None
+    route, d2 = tops.nearest_centroid(torch.from_numpy(x), torch.from_numpy(cents), banned=tb)
+    jroute, jd2 = jops.nearest_centroid(jnp.asarray(x), jnp.asarray(cents), banned=jb)
+    assert route.dtype == torch.int32
+    np.testing.assert_array_equal(route.numpy(), np.asarray(jroute))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(jd2), rtol=1e-5, atol=_l2_atol(x, cents))
+    assert not np.isin(route.numpy(), np.nonzero(banned)[0]).any()
+    if not with_banned:
+        assert not (route.numpy() == 5).any()  # every tie with centroid 3 goes to 3
+    # a row sitting on centroids 3 and 5 routes to the first open one
+    r, _ = tops.nearest_centroid(torch.from_numpy(cents[3:4]), torch.from_numpy(cents), banned=tb)
+    assert int(r[0]) == (5 if with_banned else 3)
