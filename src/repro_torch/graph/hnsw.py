@@ -187,15 +187,18 @@ def search_hnsw(
     reranker=None,
     banned: torch.Tensor | None = None,
     fused: bool | None = None,
+    max_layers: int | None = None,
 ) -> SearchResult:
     """Layered two-stage search of queries (Q, D) on the index's device.
 
     ``fused=False`` forces the unfused base-layer step (parity checks);
-    queries run in blocks that bound the (Q, n) visited bitmap.
+    ``max_layers`` searches a shallower prefix of the hierarchy (default:
+    every layer built); queries run in blocks that bound the (Q, n) visited
+    bitmap.
     """
     if spec.rerank != "none" and reranker is None:
         raise ValueError(f"spec.rerank={spec.rerank!r} needs a reranker")
-    n_layers = index.adj_up.shape[0] + 1
+    n_layers = index.adj_up.shape[0] + 1 if max_layers is None else max_layers
     n = index.adj0.shape[0]
     block = max(1, _VISITED_BUDGET // max(1, n + 1))
     ids, dists, ns, nr = [], [], 0, 0

@@ -32,6 +32,8 @@ SOURCES = {
     "flash_expand": "flash_expand.cu",
     "flash_scan_blocked": "flash_scan_blocked.cu",
     "l2_batch": "l2_batch.cu",
+    "flash_scan": "flash_scan.cu",
+    "sq_l2": "sq_l2.cu",
 }
 
 NVCC_FLAGS = [
@@ -41,6 +43,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: C signatures of the entry points (pointers and the stream as c_void_p)
 SIGNATURES = {
     "flash_round": ("repro_flash_round", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
@@ -52,6 +55,8 @@ SIGNATURES = {
         "repro_flash_scan_blocked", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
     "l2_batch": ("repro_l2_batch", [_P, _P, _P, _I, _I, _I, _P]),
+    "flash_scan": ("repro_flash_scan", [_P, _P, _P, _L, _I, _I, _I, _I, _P]),
+    "sq_l2": ("repro_sq_l2", [_P, _P, _P, _P, _L, _I, _I, _P]),
 }
 
 _FNS: dict = {}  # kernel name -> its loaded ctypes entry point

@@ -29,24 +29,8 @@ __global__ void flash_round_kernel(const int32_t* __restrict__ codes,
   const int64_t b = blockIdx.x;
   repro_flash::stage_table(table, adts + b * (int64_t)M * K, M * K);
   const int32_t* row = codes + b * (int64_t)C * M;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const int32_t* cc = row + (int64_t)c * M;
-    T acc = T(0);
-    if (VEC4) {
-      const int4* v = reinterpret_cast<const int4*>(cc);
-      for (int i = 0; i < M / 4; ++i) {
-        const int4 w = __ldg(v + i);
-        const int base = 4 * i * K;
-        acc += table[base + w.x];
-        acc += table[base + K + w.y];
-        acc += table[base + 2 * K + w.z];
-        acc += table[base + 3 * K + w.w];
-      }
-    } else {
-      for (int m = 0; m < M; ++m) acc += table[m * K + __ldg(cc + m)];
-    }
-    out[b * C + c] = acc;
-  }
+  for (int c = threadIdx.x; c < C; c += blockDim.x)
+    out[b * C + c] = repro_flash::row_sum<T, VEC4>(table, row + (int64_t)c * M, M, K);
 }
 
 template <typename T>

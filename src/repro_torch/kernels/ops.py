@@ -1,5 +1,5 @@
-"""Wrappers of the port's CUDA kernels: the three Flash kernels and
-``l2_batch``.
+"""Wrappers of the port's CUDA kernels: the four Flash kernels, ``l2_batch``
+and ``sq_l2``.
 
 Dispatch is by where the tensors lie: CPU tensors take the plain PyTorch
 version in ``ref.py`` (the CPU tests' path); CUDA tensors launch the
@@ -26,6 +26,12 @@ Kernel notes (each source in ``csrc/`` carries the full note):
   Bound by its 2·N·C·D float32 FMA operations (about equal to its bytes at
   the assignment chunk). 64 × 64 output tiles, 4 × 4 per thread, D staged
   32 columns at a time in shared memory, norms summed in-kernel.
+* ``flash_scan`` replaces ``repro/kernels/flash_scan.py::flash_scan_pallas``.
+  Bound by the (N, M) int32 codes (67.1 MB per query at the 1M-item
+  catalog). Table in shared memory, one row per thread, 16-byte code loads.
+* ``sq_l2`` replaces ``repro/kernels/sq_l2.py::sq_l2_pallas``. Bound by the
+  (N, D) int32 codes. q and s2 in shared memory, one row per warp, one float
+  multiply-add per dimension, a warp shuffle reduction.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ launches: dict[str, int] = {
     "flash_scan_blocked": 0,
     "flash_scan_batch": 0,
     "l2_batch": 0,
+    "flash_scan": 0,
+    "sq_l2": 0,
 }
 
 _LAUNCH_LOCK = threading.Lock()
@@ -54,6 +62,9 @@ _MAX_GRID_Y = 65535
 
 #: largest per-block table the kernels stage (static shared memory limit)
 _MAX_TABLE_BYTES = 48 * 1024
+
+#: widest sq_l2 query the kernel stages (q and s2: 32 KiB of shared memory)
+_MAX_SQ_DIM = 4096
 
 
 def reset_launches() -> None:
@@ -99,6 +110,35 @@ def _check_table_size(name: str, m: int, k: int) -> None:
 def _raise_on(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def flash_scan(codes: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
+    """Flat ADT scan over a code table: codes (N, M) int32 in [0, K), adt
+    (M, K) -> (N,) in adt's dtype, Σ_m adt[m, codes[n, m]]."""
+    if codes.device.type == "cpu":
+        return ref.flash_scan(codes, adt)
+    if codes.dim() != 2 or adt.dim() != 2 or codes.shape[1] != adt.shape[0]:
+        raise ValueError(
+            f"flash_scan: codes {tuple(codes.shape)} / adt {tuple(adt.shape)} must be (N, M) / (M, K)"
+        )
+    if codes.dtype != torch.int32:
+        raise TypeError(f"flash_scan: codes must be int32, got {codes.dtype}")
+    n, m = codes.shape
+    k = adt.shape[1]
+    is_float = _table_kind("flash_scan", adt)
+    _check_cuda("flash_scan", codes.device, codes=codes, adt=adt)
+    _check_table_size("flash_scan", m, k)
+    out = torch.empty(n, dtype=adt.dtype, device=codes.device)
+    if n == 0:
+        return out
+    vec4 = int(m % 4 == 0 and codes.data_ptr() % 16 == 0)
+    err = build.kernel("flash_scan")(
+        codes.data_ptr(), adt.data_ptr(), out.data_ptr(), n, m, k, is_float, vec4,
+        _stream(codes),
+    )
+    _raise_on("flash_scan", err)
+    count_launch("flash_scan")
+    return out
 
 
 def flash_round(codes: torch.Tensor, adts: torch.Tensor) -> torch.Tensor:
@@ -268,3 +308,33 @@ def nearest_centroid(
         d2 = torch.where(banned.to(d2.device)[None, :], float("inf"), d2)
     route = first_argmin(d2, 1)
     return route.to(torch.int32), d2.gather(1, route[:, None])[:, 0]
+
+
+def sq_l2(q: torch.Tensor, db: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+    """SQ quantized-domain distance: q (D,) int32 codes, db (N, D) int32
+    codes, s2 (D,) float32 -> (N,) float32, Σ_d s2_d (db[n, d] − q_d)²."""
+    if db.device.type == "cpu":
+        return ref.sq_l2(q, db, s2)
+    if db.dim() != 2 or q.shape != (db.shape[1],) or s2.shape != (db.shape[1],):
+        raise ValueError(
+            f"sq_l2: q {tuple(q.shape)}, db {tuple(db.shape)}, s2 {tuple(s2.shape)} "
+            "must be (D,), (N, D), (D,)"
+        )
+    if q.dtype != torch.int32 or db.dtype != torch.int32 or s2.dtype != torch.float32:
+        raise TypeError(
+            f"sq_l2: q and db must be int32 and s2 float32, got {q.dtype}, {db.dtype}, {s2.dtype}"
+        )
+    n, d = db.shape
+    if d > _MAX_SQ_DIM:
+        raise ValueError(f"sq_l2: D={d} exceeds the {_MAX_SQ_DIM} dimensions the kernel stages")
+    _check_cuda("sq_l2", db.device, q=q, db=db, s2=s2)
+    out = torch.empty(n, dtype=torch.float32, device=db.device)
+    if n == 0 or d == 0:
+        return out.zero_()
+    vec4 = int(d % 4 == 0 and db.data_ptr() % 16 == 0)
+    err = build.kernel("sq_l2")(
+        q.data_ptr(), db.data_ptr(), s2.data_ptr(), out.data_ptr(), n, d, vec4, _stream(db),
+    )
+    _raise_on("sq_l2", err)
+    count_launch("sq_l2")
+    return out

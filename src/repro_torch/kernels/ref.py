@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the port's kernels (the Flash kernels and
-``l2_batch``).
+"""Plain PyTorch versions of the port's kernels (the Flash kernels,
+``l2_batch`` and ``sq_l2``).
 
 Each function is the semantic ground truth of its CUDA kernel in
 ``csrc/``: the wrappers in ``ops.py`` take these for CPU tensors, the CPU
@@ -17,6 +17,17 @@ from repro_torch.core import quantize as qz
 
 def _sum_m(vals: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return vals.sum(-1).to(dtype)
+
+
+def flash_scan(codes: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
+    """Flat ADT scan: codes (N, M) int in [0, K), adt (M, K) -> (N,) in
+    adt's dtype, Σ_m adt[m, codes[n, m]]. The sum runs in m order, the
+    kernel's order, so float tables agree with the kernel bit for bit."""
+    n, m = codes.shape
+    out = torch.zeros(n, dtype=adt.dtype, device=codes.device)
+    for j in range(m):
+        out += adt[j][codes[:, j].long()]
+    return out
 
 
 def flash_round(codes: torch.Tensor, adts: torch.Tensor) -> torch.Tensor:
@@ -76,3 +87,11 @@ def l2_batch(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     x2 = (x * x).sum(-1, keepdim=True)
     y2 = (y * y).sum(-1)
     return torch.clamp_min(x2 + y2[None, :] - 2.0 * (x @ y.T), 0.0)
+
+
+def sq_l2(q: torch.Tensor, db: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+    """Quantized-domain scaled L2: q (D,) int codes, db (N, D) int codes,
+    s2 (D,) float32 -> (N,) float32, Σ_d s2_d (db[n, d] − q_d)², with the
+    subtraction in int32 (the reference's ``sq_l2_ref``)."""
+    diff = (db.to(torch.int32) - q.to(torch.int32)).to(torch.float32)
+    return (s2.to(torch.float32)[None, :] * diff * diff).sum(-1)

@@ -1,0 +1,161 @@
+"""BERT4Rec — bidirectional transformer over item sequences
+(arXiv:1904.06690), in PyTorch.
+
+Serving scores the next item at a session's final (mask) position against
+the item-embedding table (weights tied). ``Bert4Rec.serve`` gives the (B, D)
+query vectors that ``models/recsys/retrieval.py`` scores against the
+catalog. The reference's parameter tree carries across with
+:func:`params_from_jax`. Training (the cloze loss and the optimizer) is not
+ported yet (ROADMAP queue 1, item 9).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.utils import resolve_device
+
+
+@dataclass(frozen=True)
+class Bert4RecConfig:
+    n_items: int = 1_000_000  # production-scale item vocabulary
+    embed_dim: int = 64
+    n_blocks: int = 2
+    n_heads: int = 2
+    seq_len: int = 200
+    mask_prob: float = 0.2
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def mask_id(self) -> int:
+        return self.n_items  # the extra row
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.n_heads
+
+
+class Block(nn.Module):
+    """Pre-norm encoder block: bidirectional GQA with QKV bias, SwiGLU."""
+
+    def __init__(self, gen: torch.Generator, cfg: Bert4RecConfig, device):
+        super().__init__()
+        d = cfg.embed_dim
+        self.attn = L.GQAAttention(gen, d_model=d, n_heads=cfg.n_heads, n_kv=cfg.n_heads,
+                                   head_dim=cfg.head_dim, device=device)
+        self.mlp = L.SwiGLU(gen, d_model=d, d_ff=4 * d, device=device)
+        self.ln1 = nn.Parameter(torch.ones(d, device=device))
+        self.ln1b = nn.Parameter(torch.zeros(d, device=device))
+        self.ln2 = nn.Parameter(torch.ones(d, device=device))
+        self.ln2b = nn.Parameter(torch.zeros(d, device=device))
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        h = L.layer_norm(x, self.ln1, self.ln1b)
+        x = x + self.attn(h, positions, causal=False)
+        h = L.layer_norm(x, self.ln2, self.ln2b)
+        return x + self.mlp(h)
+
+
+class Bert4Rec(nn.Module):
+    """The encoder and its tied item table.
+
+    ``item_embed`` and ``out_bias`` have ``n_items + 1`` rows; the last is
+    [MASK]. Parameters are drawn from ``gen`` on ``device`` (a generator
+    seeded 0 there when none is given).
+    """
+
+    def __init__(self, cfg: Bert4RecConfig, gen: torch.Generator | None = None, *,
+                 device: str | torch.device = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        if gen is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+        self.cfg = cfg
+        d = cfg.embed_dim
+        self.item_embed = nn.Parameter(
+            torch.randn((cfg.n_items + 1, d), generator=gen, device=dev) * 0.02
+        )
+        self.pos_embed = nn.Parameter(torch.randn((cfg.seq_len, d), generator=gen, device=dev) * 0.02)
+        self.blocks = nn.ModuleList(Block(gen, cfg, dev) for _ in range(cfg.n_blocks))
+        self.ln_f = nn.Parameter(torch.ones(d, device=dev))
+        self.ln_fb = nn.Parameter(torch.zeros(d, device=dev))
+        self.out_bias = nn.Parameter(torch.zeros(cfg.n_items + 1, device=dev))
+
+    @property
+    def device(self) -> torch.device:
+        return self.item_embed.device
+
+    @torch.no_grad()
+    def encode(self, items: torch.Tensor) -> torch.Tensor:
+        """items (B, S) int -> hidden (B, S, D). Bidirectional attention."""
+        items = torch.as_tensor(items, device=self.device).long()
+        b, s = items.shape
+        x = (self.item_embed[items] + self.pos_embed[None, :s]).to(self.cfg.dtype)
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        for blk in self.blocks:
+            x = blk(x, positions)
+        return L.layer_norm(x, self.ln_f, self.ln_fb)
+
+    def serve(self, items: torch.Tensor) -> torch.Tensor:
+        """Online scoring: the final position's hidden state (the next-item
+        query vector). items (B, S) with items[:, -1] == mask_id by
+        convention. Returns (B, D) float32."""
+        return self.encode(items)[:, -1, :].to(torch.float32)
+
+    @torch.no_grad()
+    def score_all(self, items: torch.Tensor) -> torch.Tensor:
+        """Bulk scoring: (B, S) -> logits over the full item vocab (B, V+1)."""
+        return self.serve(items) @ self.item_embed.T + self.out_bias
+
+
+def items_from_uniform(u: torch.Tensor, cfg: Bert4RecConfig) -> torch.Tensor:
+    """Popularity-skewed (zipf-ish) item ids from uniforms u in [1e-6, 1):
+    ``clip(int32(u^(−1/1.2) − 1), 0, n_items − 1)``, truncated toward 0."""
+    return torch.clamp((u ** (-1 / 1.2) - 1).to(torch.int32), 0, cfg.n_items - 1)
+
+
+def sample_training_batch(gen: torch.Generator, cfg: Bert4RecConfig, batch: int):
+    """Synthetic session data: (items (B, S) int32, mask_positions (B, S)
+    bool), with at least the last position masked in every row. Drawn from
+    ``gen`` on its device."""
+    dev = gen.device
+    u = torch.rand((batch, cfg.seq_len), generator=gen, device=dev) * (1.0 - 1e-6) + 1e-6
+    items = items_from_uniform(u, cfg)
+    mask_positions = torch.rand((batch, cfg.seq_len), generator=gen, device=dev) < cfg.mask_prob
+    mask_positions[:, -1] = True
+    return items, mask_positions
+
+
+def params_from_jax(params_np: dict, cfg: Bert4RecConfig, *, device: str | torch.device = "cuda") -> Bert4Rec:
+    """A ``Bert4Rec`` holding the reference's parameters, given its tree
+    (``init_bert4rec``'s layout) as numpy arrays. The reference stacks the
+    blocks on a leading ``n_blocks`` axis; dense weights are (in, out) in
+    both packages."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    model = Bert4Rec(cfg, gen, device=dev)
+
+    def put(param: nn.Parameter, value) -> None:
+        value = np.array(value, dtype=np.float32)
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(f"shape {value.shape} does not fit {tuple(param.shape)}")
+        with torch.no_grad():
+            param.copy_(torch.from_numpy(value))
+
+    for name in ("item_embed", "pos_embed", "ln_f", "ln_fb", "out_bias"):
+        put(getattr(model, name), params_np[name])
+    blocks = params_np["blocks"]
+    for i, blk in enumerate(model.blocks):
+        for name in ("ln1", "ln1b", "ln2", "ln2b"):
+            put(getattr(blk, name), blocks[name][i])
+        for name in ("wq", "wk", "wv", "wo", "bq", "bk", "bv"):
+            put(getattr(blk.attn, name), blocks["attn"][name][i])
+        for name in ("wg", "wu", "wd"):
+            put(getattr(blk.mlp, name), blocks["mlp"][name][i])
+    return model

@@ -51,3 +51,26 @@ def sync(device: torch.device) -> None:
     """Wait for the card (a no-op on the CPU) — used around timed phases."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def topk_first(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` along the last axis: the k largest values, ordered
+    by value descending and, among equal values, by index ascending; at a
+    tie on the k-th value the lower indices are taken. ``torch.topk``
+    promises no tie order, so it only finds the k-th value here; the
+    selection is then exact in one pass (no sort of the whole row). One
+    difference stays: −0.0 and +0.0 are equal here, XLA puts −0.0 lower.
+    Returns (values, int64 indices), each (..., k)."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, n)
+    if k == 0 or x2.shape[0] == 0:
+        empty = x2[:, :0]
+        return empty.reshape(*lead, 0), empty.long().reshape(*lead, 0)
+    thr = torch.topk(x2, k, dim=1).values[:, -1:]
+    above = x2 > thr
+    eq = x2 == thr
+    need = k - above.sum(1, keepdim=True)
+    take = above | (eq & (torch.cumsum(eq, 1, dtype=torch.int32) <= need))
+    idx = take.nonzero()[:, 1].view(-1, k)  # row-major: ascending index per row
+    vals, order = torch.sort(x2.gather(1, idx), dim=1, descending=True, stable=True)
+    return vals.reshape(*lead, k), idx.gather(1, order).reshape(*lead, k)

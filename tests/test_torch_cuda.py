@@ -12,7 +12,9 @@ and atol 1e-5·M·max|table| (the kernel sums in another order).
 ``l2_batch`` is allclose with rtol 1e-5 and atol 1e-5·max(‖x‖² + ‖y‖²)
 against the plain version with TF32 off, and ``nearest_centroid``'s
 routes are equal except where the two nearest centroids are within that
-atol of each other (a near tie, counted and bounded).
+atol of each other (a near tie, counted and bounded). ``flash_scan`` adds
+in m order like its plain version, so both table kinds must be equal;
+``sq_l2`` is allclose with rtol 1e-5 (non-negative terms in another order).
 """
 
 from __future__ import annotations
@@ -158,3 +160,53 @@ def test_cuda_l2_batch_raises_on_what_it_does_not_take(cuda_device):
         tops.l2_batch(x.float(), torch.zeros((4, 7), device=cuda_device))
     with pytest.raises(ValueError):
         tops.l2_batch(x.float()[:, ::2], x.float()[:, ::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("n,m,k,offset", [(1_048_575, 16, 16, 0), (5000, 16, 256, 1), (3001, 7, 16, 0)])
+def test_cuda_flash_scan(cuda_device, dtype, n, m, k, offset):
+    """The catalog's shape, a K = 256 table read element by element (a code
+    table that starts 4 bytes past a 16-byte line), and M = 7."""
+    rng = np.random.default_rng(n + m + k)
+    flat = torch.from_numpy(rng.integers(0, k, (n * m + offset,)).astype(np.int32)).to(cuda_device)
+    codes = flat[offset:].view(n, m)
+    adt = torch.from_numpy(_table(rng, (m, k), dtype)).to(cuda_device)
+    before = tops.launches["flash_scan"]
+    got = tops.flash_scan(codes, adt)
+    torch.cuda.synchronize()
+    assert tops.launches["flash_scan"] == before + 1
+    assert torch.equal(got, tref.flash_scan(codes, adt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1_048_576, 128), (999, 30), (64, 4096)])
+def test_cuda_sq_l2(cuda_device, n, d):
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(n + d)
+    q = torch.randint(0, 256, (d,), generator=g, device=cuda_device, dtype=torch.int32)
+    db = torch.randint(0, 256, (n, d), generator=g, device=cuda_device, dtype=torch.int32)
+    s2 = torch.rand((d,), generator=g, device=cuda_device) * 1e-2 + 1e-4
+    before = tops.launches["sq_l2"]
+    got = tops.sq_l2(q, db, s2)
+    torch.cuda.synchronize()
+    assert tops.launches["sq_l2"] == before + 1
+    assert torch.allclose(got, tref.sq_l2(q, db, s2), rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_scan_and_sq_l2_raise_on_what_they_do_not_take(cuda_device):
+    codes = torch.zeros((8, 16), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):  # a 64 KiB table
+        tops.flash_scan(codes, torch.zeros((16, 1024), dtype=torch.int32, device=cuda_device))
+    with pytest.raises(TypeError):
+        tops.flash_scan(codes.long(), torch.zeros((16, K), dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError):
+        tops.flash_scan(codes, torch.zeros((8, K), dtype=torch.int32, device=cuda_device))
+    q = torch.zeros(5000, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="4096"):
+        tops.sq_l2(q, torch.zeros((2, 5000), dtype=torch.int32, device=cuda_device),
+                   torch.ones(5000, device=cuda_device))
+    with pytest.raises(TypeError):
+        tops.sq_l2(q[:8], torch.zeros((2, 8), dtype=torch.int32, device=cuda_device),
+                   torch.ones(8, dtype=torch.float64, device=cuda_device))

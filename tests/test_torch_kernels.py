@@ -9,8 +9,12 @@ float32 tables allclose with rtol 1e-5 and atol 1e-5·M·max|table| (the
 sums run in another order). ``l2_batch`` is held with rtol 1e-5 and
 atol 1e-5·max(‖x‖² + ‖y‖²) (the float32 products sum in another order and
 x2 + y2 − 2xy cancels), and its routes (``nearest_centroid``) must be
-equal. The CUDA kernels themselves are held against the same plain
-versions on the card by ``test_torch_cuda.py``.
+equal. ``flash_scan`` is held the same way at K ∈ {16, 256}: equal for
+int32 tables, rtol 1e-6 and atol 1e-6·M·max|table| for float32 (the plain
+version adds in m order, the reference in its own). ``sq_l2`` is held with
+rtol 1e-5 (a sum of D non-negative float32 terms in another order). The
+CUDA kernels themselves are held against the same plain versions on the
+card by ``test_torch_cuda.py``.
 """
 
 from __future__ import annotations
@@ -205,3 +209,44 @@ def test_nearest_centroid_matches_reference(with_banned):
     # a row sitting on centroids 3 and 5 routes to the first open one
     r, _ = tops.nearest_centroid(torch.from_numpy(cents[3:4]), torch.from_numpy(cents), banned=tb)
     assert int(r[0]) == (5 if with_banned else 3)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("k", [16, 256])
+@pytest.mark.parametrize("n,m", [(4096, 16), (1000, 7)])
+def test_flash_scan_matches_reference(dtype, k, n, m):
+    rng = np.random.default_rng(n + m + k)
+    codes = rng.integers(0, k, (n, m)).astype(np.int32)
+    adt = _table(rng, (m, k), dtype)
+    got = tops.flash_scan(torch.from_numpy(codes), torch.from_numpy(adt))
+    assert got.dtype == torch.from_numpy(adt).dtype and tuple(got.shape) == (n,)
+    for want in (jref.flash_scan_ref(jnp.asarray(codes), jnp.asarray(adt)),
+                 jops.flash_scan(jnp.asarray(codes), jnp.asarray(adt), impl="interpret")):
+        want = np.asarray(want)
+        if dtype == "int32":
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6 * m * float(np.abs(adt).max()))
+
+
+@pytest.mark.parametrize("n,d", [(1000, 128), (77, 30)])
+def test_sq_l2_matches_reference(n, d):
+    rng = np.random.default_rng(n + d)
+    q = rng.integers(0, 256, d).astype(np.int32)
+    db = rng.integers(0, 256, (n, d)).astype(np.int32)
+    db[0] = q  # one exact zero
+    s2 = rng.uniform(1e-4, 1e-2, d).astype(np.float32)
+    got = tops.sq_l2(torch.from_numpy(q), torch.from_numpy(db), torch.from_numpy(s2))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n,) and float(got[0]) == 0.0
+    for want in (jref.sq_l2_ref(jnp.asarray(q), jnp.asarray(db), jnp.asarray(s2)),
+                 jops.sq_l2(jnp.asarray(q), jnp.asarray(db), jnp.asarray(s2), impl="interpret")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+
+
+def test_flash_scan_and_sq_l2_count_no_launch_on_the_cpu():
+    tops.reset_launches()
+    rng = np.random.default_rng(1)
+    tops.flash_scan(torch.from_numpy(rng.integers(0, K, (50, 16)).astype(np.int32)),
+                    torch.from_numpy(rng.integers(0, 9, (16, K)).astype(np.int32)))
+    tops.sq_l2(torch.zeros(8, dtype=torch.int32), torch.ones((5, 8), dtype=torch.int32), torch.ones(8))
+    assert tops.launches["flash_scan"] == 0 and tops.launches["sq_l2"] == 0
