@@ -7,22 +7,29 @@
 Phases, each printing one JSON line (any failure raises, so the exit is
 non-zero and no result line is printed):
 
-1. device   the card's name and power limit; nvcc builds the six kernels
+1. device   the card's name and power limit; nvcc builds the seven kernels
             from ``src/repro_torch/kernels/csrc`` in parallel (seconds).
 2. kernels  each kernel on the card at the paths' shapes, held against its
             plain PyTorch version (int32 tables bit-equal, float32 tables
             and ``l2_batch``/``sq_l2`` allclose, routes equal), timed
             beside its bound, the plain version and (``l2_batch``)
-            ``torch.cdist``.
+            ``torch.cdist``; ``flash_beam`` (1,000 queries over the
+            phase's n-vertex graph, ef ∈ {64, 256}, W ∈ {1, 4}, and the
+            build's 32-query insert batch) is also held bit-equal to, and
+            timed beside, the loop of ``flash_expand`` launches it replaces. ``torch.profiler``
+            gives the device time of ``flash_expand``,
+            ``flash_scan_blocked`` and ``flash_beam`` beside the events'.
 3. build    ``AnnIndex.build(algo="hnsw", backend="flash_blocked",
             strategy="bulk")`` over the ``--n`` base rows of one
             ``vector_dataset(seed=0, n=--n + 1,000, d=128, n_clusters=64)``
             draw (SIFT1M's shape): seconds and n_dists per phase.
 4. search   1,000 held-out queries, k = 10, exact rerank, ef ∈ {64, 256},
-            width ∈ {1, 4}: QPS and recall@10 against the port's
-            ``exact_knn`` (kernel ``l2_batch``), itself cross-checked on
-            100 queries against a plain loop; the unfused step must return
-            the fused step's ids.
+            width ∈ {1, 4}: QPS, recall@10 and ``flash_beam`` launches
+            against the port's ``exact_knn`` (kernel ``l2_batch``), itself
+            cross-checked on 100 queries against a plain loop; the unfused
+            step loop must return the fused beam's ids; a profiler window
+            over one search (ef = 64, W = 1) each way gives the device busy
+            share and the top five kernels by device time.
 5. check    on small inputs the card's path equals the plain CPU path: beam
             search on the built index with the same query tables, a whole
             20k-vector build from the same coder, and an 8k-row
@@ -36,7 +43,8 @@ non-zero and no result line is printed):
 7. segmented_search  the held-out queries, k = 10, exact rerank, ef ∈ {64,
             256}, W = 4, the default fan-out (one card: the loop over
             segments): QPS, recall@10 against phase 4's ground truth,
-            n_scan, n_rerank; the fan-out threads must return the same ids.
+            n_scan, n_rerank, ``flash_beam`` launches (one per segment
+            and search); the fan-out threads must return the same ids.
 8. maintenance  ``add`` the last 2,000 rows (routed by ``nearest_centroid``),
             search, ``delete`` 10,000 ids, search (ef = 256, W = 4): no
             deleted id may come back; recall
@@ -60,13 +68,15 @@ non-zero and no result line is printed):
 Launch counts are zeroed just before each path (the main path: phases 3–4;
 the scale-out path: phases 6–8; the retrieval path: phase 9) and read just
 after it; the script fails if a kernel of a path never launched there.
-``sq_l2`` is on no path: phase 2 alone runs it. Imports nothing of the JAX
-package.
+``sq_l2`` and ``flash_expand`` are on no path: phase 2 alone runs them (and
+``flash_expand`` the loop that ``flash_beam`` is held against). Imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -88,6 +98,7 @@ CUDA_CORE_OPS_PER_S = 67e12  # float32 outside the tensor cores; int32 adds coun
 REPLACES = {
     "flash_round": "src/repro/kernels/flash_round.py:49",
     "flash_expand": "src/repro/kernels/flash_expand.py:81",
+    "flash_beam": "src/repro/kernels/flash_expand.py:81",
     "flash_scan_blocked": "src/repro/kernels/flash_scan.py:94",
     "l2_batch": "src/repro/kernels/l2_batch.py:43",
     "flash_scan": "src/repro/kernels/flash_scan.py:50",
@@ -96,6 +107,7 @@ REPLACES = {
 SOURCES = {
     "flash_round": "src/repro_torch/kernels/csrc/flash_round.cu",
     "flash_expand": "src/repro_torch/kernels/csrc/flash_expand.cu",
+    "flash_beam": "src/repro_torch/kernels/csrc/flash_beam.cu",
     "flash_scan_blocked": "src/repro_torch/kernels/csrc/flash_scan_blocked.cu",
     "l2_batch": "src/repro_torch/kernels/csrc/l2_batch.cu",
     "flash_scan": "src/repro_torch/kernels/csrc/flash_scan.cu",
@@ -124,6 +136,64 @@ def time_ms(fn, *, reps: int = 5, inner: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
+
+
+def device_events(prof) -> list:
+    """The kernel events (device time) of a ``torch.profiler`` run."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
+def profiled(fn, reps: int = 1):
+    """Run ``fn`` ``reps`` times under ``torch.profiler`` (CPU and CUDA
+    activities) between two synchronizations: (profile, host ms of the
+    window), or (None, the error) where the profiler cannot start here. An
+    error raised by ``fn`` itself propagates."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        try:  # the profiler is an observation, not the path
+            prof = stack.enter_context(profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        except Exception as exc:
+            return None, repr(exc)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return prof, wall
+
+
+def profiler_kernel_ms(fn, kernel: str, reps: int = 5):
+    """Device ms per call of ``fn`` spent in kernels whose name holds
+    ``kernel``, from ``torch.profiler``; a string where it records none."""
+    prof, wall = profiled(fn, reps)
+    if prof is None:
+        return f"profiler failed: {wall}"
+    us = sum(e.time_range.elapsed_us() for e in device_events(prof) if kernel in e.name)
+    return us / reps / 1e3 if us > 0 else "no device time recorded"
+
+
+def device_window(fn) -> dict:
+    """One call of ``fn`` under the profiler: the window's host ms, the
+    device busy share (kernel time over the window) and the top five
+    kernels by device time."""
+    prof, wall = profiled(fn)
+    if prof is None:
+        return {"error": wall}
+    by_name: dict = {}
+    for e in device_events(prof):
+        ms, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, cnt + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"window_ms": wall, "device_ms": busy, "busy_share": busy / wall if wall else None,
+            "device_ops": sum(c for _, c in by_name.values()),
+            "top5": [{"name": k[:120], "ms": ms, "count": c} for k, (ms, c) in top]}
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -207,6 +277,8 @@ def check_kernels(dev, n: int) -> dict:
         out[f"flash_expand_w{w}"] = dict(
             shape=[q, w, r, m], n=n, max_abs_err=errs[torch.int32], max_abs_err_f32=errs[torch.float32],
             ms=time_ms(lambda: ops.flash_expand(nodes, adjacency, mirror, adt)),
+            device_ms=profiler_kernel_ms(lambda: ops.flash_expand(nodes, adjacency, mirror, adt),
+                                         "flash_expand_kernel"),
             plain_ms=time_ms(lambda: ref.flash_expand(nodes, adjacency, mirror, adt), reps=3, inner=2),
             bound_ms=bnd, bound_by=by, library_ms=None,
         )
@@ -217,9 +289,13 @@ def check_kernels(dev, n: int) -> dict:
             shape=list(blocks.shape), max_abs_err=errs[("scan", torch.int32)],
             max_abs_err_f32=errs[("scan", torch.float32)],
             ms=time_ms(lambda: ops.flash_scan_blocked(blocks, adt)),
+            device_ms=profiler_kernel_ms(lambda: ops.flash_scan_blocked(blocks, adt),
+                                         "flash_scan_blocked_kernel"),
             plain_ms=time_ms(lambda: ref.flash_scan_blocked(blocks, adt), reps=3, inner=2),
             bound_ms=bnd, bound_by=by, library_ms=None,
         )
+    del mirror_i32
+    out.update(check_flash_beam(ints, adjacency, n, m, k, r))
 
     # l2_batch: a ground-truth tile (exact_knn, 1,000 queries x one 8,192-row
     # chunk) and an assignment chunk (65,536 rows x 64 centroids)
@@ -287,6 +363,100 @@ def check_kernels(dev, n: int) -> dict:
     )
     del db
     torch.cuda.synchronize()
+    return out
+
+
+def check_flash_beam(ints, adjacency, n: int, m: int, k: int, r: int) -> dict:
+    """Phase 2's flash_beam rows: the base-layer search of the 1,000-query
+    batch over the phase's random n-vertex graph (a code per vertex, the
+    mirror built from them, one random entry per query), at ef ∈ {64, 256}
+    and W ∈ {1, 4}. Each launch must equal, bit for bit (ids, dists,
+    n_dists, n_hops), both its plain version ``ref.flash_beam`` on the same
+    inputs and the loop of ``flash_expand`` launches it replaces, and at
+    (64, 4) also with the unpacked mirror; it is timed beside that loop
+    (``step_loop_ms``), its plain version on the card and its bound. At
+    (64, 1) the first 32 queries, one insert batch of the build
+    (``BuildParams``: batch 32, ef 64, W 1), are checked and timed too.
+
+    The bound counts the bytes the search needs: the tables, n_hops · R
+    adjacency entries and packed code rows, the beam in and out, the entries
+    and the counts. The visited bitmap the kernel zeroes is its own
+    workspace, reported apart as ``workspace_bytes``."""
+    import torch
+
+    from repro_torch.core import flash as fl
+    from repro_torch.kernels import ops, ref
+
+    q = QUERIES
+    codes = ints((n, m), k)
+    unpacked = codes[adjacency.long()]  # adjacency has no empty slot here
+    packed = fl.pack_codes(unpacked)
+    entries = ints((q, 1), n)
+    words = -(-n // 32)
+    out = {}
+    for ef in (64, 256):
+        for w in (1, 4):
+            adt = ints((q, m, k), 256)
+            d_e = fl.adc_lookup(adt, codes[entries.long()]).to(torch.float32)
+            args = (adt, *ref.initial_beam(entries, d_e, ef), entries)  # adt, beam (3), entries
+            max_iters = -(-(4 * ef + 8) // w)
+
+            def kernel(args=args, mir=packed):
+                return ops.flash_beam(args[0], adjacency, mir, *args[1:], width=w, max_iters=max_iters)
+
+            def plain(args=args, mir=packed):
+                return ref.flash_beam(args[0], adjacency, mir, *args[1:], width=w, max_iters=max_iters)
+
+            def step_loop(args=args):
+                a, bd, bi, be, en = args
+
+                def step(nodes):
+                    rows, sums = ops.flash_expand(nodes, adjacency, packed, a)
+                    return rows, sums.to(torch.float32)
+                return ref.beam_loop(step, bd, bi, be, en, n, width=w, max_iters=max_iters)
+
+            def check(got, args=args, mirrors=(packed,), what=""):
+                """Hold ``got`` equal to the step loop and, per mirror, to the
+                plain version: the largest |kernel − plain| over finite dists."""
+                err = 0.0
+                wants = [("the flash_expand step loop", step_loop(args))]
+                wants += [(f"its plain version ({mir.dtype} mirror)", plain(args, mir)) for mir in mirrors]
+                for against, want in wants:
+                    for name, x, y in zip(("dists", "ids", "n_dists", "n_hops"), got, want):
+                        if not torch.equal(x, y):
+                            raise AssertionError(f"flash_beam ({what}) differs from {against} in {name}")
+                    fin = torch.isfinite(got[0]) & torch.isfinite(want[0])
+                    if bool(fin.any()):
+                        err = max(err, float((got[0][fin] - want[0][fin]).abs().max()))
+                return err
+
+            mirrors = (unpacked, packed) if (ef, w) == (64, 4) else (packed,)
+            err = 0.0
+            for mir in mirrors:
+                got = kernel(mir=mir)
+                err = max(err, check(got, mirrors=mirrors, what=f"ef={ef}, W={w}, {mir.dtype} mirror"))
+            hops = int(got[3].sum())
+            nbytes = (adt.numel() * 4 + hops * r * (4 + m // 2)
+                      + q * ef * 9 + q * ef * 8 + q * 16 + entries.numel() * 4)
+            bnd, by = bound_ms(nbytes, hops * r * m)
+            row = out[f"flash_beam_ef{ef}_w{w}"] = dict(
+                shape=[q, ef, w, r, m], n=n, max_abs_err=err, n_hops=hops, n_dists=int(got[2].sum()),
+                n_hops_max=int(got[3].max()), workspace_bytes=q * words * 4,
+                ms=time_ms(kernel, reps=5, inner=3),
+                device_ms=profiler_kernel_ms(kernel, "flash_beam_kernel", reps=3),
+                step_loop_ms=path_ms(step_loop, reps=3),
+                plain_ms=path_ms(plain, reps=3),
+                bound_ms=bnd, bound_by=by, library_ms=None,
+            )
+            if (ef, w) == (64, 1):
+                batch = tuple(t[:32].contiguous() for t in args)
+                got = kernel(batch)
+                row["insert_batch_q32"] = dict(
+                    max_abs_err=check(got, batch, what="an insert batch of 32 queries"),
+                    n_hops_max=int(got[3].max()), ms=time_ms(lambda: kernel(batch), reps=5, inner=3),
+                    device_ms=profiler_kernel_ms(lambda: kernel(batch), "flash_beam_kernel", reps=3),
+                    step_loop_ms=path_ms(lambda: step_loop(batch), reps=3),
+                )
     return out
 
 
@@ -573,7 +743,7 @@ def scale_out_path(base_np, queries, gt, spill: str, t_start: float) -> tuple[di
         r, dt = timed_search(coll, queries, k=10, ef=ef, width=4)
         results.append({"ef": ef, "width": 4, "qps": QUERIES / dt, "seconds": dt,
                         "recall@10": recall_at(r.ids, gt), "n_scan": r.n_scan, "n_rerank": r.n_rerank,
-                        "flash_expand_launches": ops.launches["flash_expand"] - before["flash_expand"]})
+                        "flash_beam_launches": ops.launches["flash_beam"] - before["flash_beam"]})
         if ef == 64:
             seq_ids = r.ids
     sync(dev)
@@ -632,7 +802,7 @@ def scale_out_path(base_np, queries, gt, spill: str, t_start: float) -> tuple[di
           "recall@10_after_delete_ef256": recall_at(r_del.ids, gt_live), "qps_after_delete": QUERIES / dt_del,
           "deleted_ids_returned": 0, "launches": launches, "l2_batch_launches_by_use": l2_uses,
           "elapsed_s": time.perf_counter() - t_start})
-    for name in ("flash_round", "flash_expand", "l2_batch"):
+    for name in ("flash_round", "flash_beam", "l2_batch"):
         if launches[name] == 0:
             raise AssertionError(f"the scale-out path never launched {name}")
     return launches, l2_uses
@@ -875,8 +1045,9 @@ def main() -> int:
           "seconds": st.seconds, "n_dists": st.n_dists, "n_dists_by_phase": dict(zip(PHASE_NAMES, st.phases)),
           "n_hops": st.n_hops, "repair_unreachable": st.repair_unreachable, "launches": build_launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    if build_launches["flash_round"] == 0:
-        raise AssertionError("the build never launched flash_round")
+    for name in ("flash_round", "flash_beam"):  # flash_beam: the repair's inserts
+        if build_launches[name] == 0:
+            raise AssertionError(f"the build never launched {name}")
     adj0 = index.graph.adj0
     if not bool(((adj0 >= -1) & (adj0 < n)).all()):
         raise AssertionError("adjacency ids out of range")
@@ -905,7 +1076,7 @@ def main() -> int:
             rec = recall_at(res.ids, gt)
             results.append({"ef": ef, "width": width, "qps": QUERIES / dt, "seconds": dt,
                             "recall@10": rec, "n_scan": res.n_scan, "n_rerank": res.n_rerank,
-                            "flash_expand_launches": ops.launches["flash_expand"] - before["flash_expand"]})
+                            "flash_beam_launches": ops.launches["flash_beam"] - before["flash_beam"]})
             fused_ids[(ef, width)] = res.ids
     for width in (1, 4):
         res_u = index.search(queries, k=10, ef=64, width=width, fused=False)
@@ -913,9 +1084,14 @@ def main() -> int:
             raise AssertionError(f"unfused search (ef=64, width={width}) returned other ids than the fused one")
     torch.cuda.synchronize()
     launches = dict(ops.launches)
-    for name in ("flash_round", "flash_expand", "flash_scan_blocked", "l2_batch"):
+    for name in ("flash_round", "flash_beam", "flash_scan_blocked", "l2_batch"):
         if launches[name] == 0:
             raise AssertionError(f"the main path never launched {name}")
+    # where the device time goes in one search (after the counts were read)
+    windows = {
+        "flash_beam": device_window(lambda: index.search(queries, k=10, ef=64, width=1)),
+        "step_loop": device_window(lambda: index.search(queries, k=10, ef=64, width=1, fused=False)),
+    }
     # The sanity floor: the graph search at ef=256 must reach at least half
     # the recall of an exhaustive scan of the same codes keeping 256
     # candidates. (At this scale the 4-bit codes, not the graph, bound
@@ -925,7 +1101,7 @@ def main() -> int:
     emit({"phase": "search", "queries": QUERIES, "k": 10, "results": results,
           "exhaustive_scan_256_recall@10": scan_rec, "unfused_equals_fused": True,
           "ground_truth_s": gt_s, "ground_truth_cross_check": gt_check,
-          "launches": launches, "elapsed_s": time.perf_counter() - t_start})
+          "profile_ef64_w1": windows, "launches": launches, "elapsed_s": time.perf_counter() - t_start})
     if best < 0.5 * scan_rec:
         raise AssertionError(
             f"recall@10 at ef=256 is {best}, below half the exhaustive scan's {scan_rec}"
@@ -953,6 +1129,7 @@ def main() -> int:
 
     rows = []
     for name, key in (("flash_round", "flash_round"), ("flash_expand", "flash_expand_w4"),
+                      ("flash_beam", "flash_beam_ef64_w1"),
                       ("flash_scan_blocked", "flash_scan_blocked_w4"), ("l2_batch", "l2_batch_gt"),
                       ("flash_scan", "flash_scan"), ("sq_l2", "sq_l2")):
         kr = kern[key]
@@ -961,8 +1138,13 @@ def main() -> int:
                      "max_abs_err": kr["max_abs_err"], "ms": kr["ms"],
                      "plain_ms": kr["plain_ms"], "bound_ms": kr["bound_ms"], "bound_by": kr["bound_by"],
                      "library_ms": kr["library_ms"], "shape": kr["shape"]})
+        rows[-1].update({f: kr[f] for f in ("device_ms", "step_loop_ms", "workspace_bytes") if f in kr})
         if name == "l2_batch":
             rows[-1]["launches_by_use"] = l2_uses
+        if name == "flash_beam":
+            rows[-1]["launches_by_use"] = {"main_build": build_launches[name],
+                                           "main_search": launches[name] - build_launches[name],
+                                           "scale_out": scale_launches[name]}
         if name == "flash_round":
             rows[-1]["launches_by_use"] = {"main": launches[name], "scale_out": scale_launches[name],
                                            "retrieval_graph": retrieval_launches[name]}

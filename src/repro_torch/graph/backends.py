@@ -9,9 +9,9 @@ protocol (every query-side argument is batched over a leading axis Q):
     pair_matrix(ids (B, C))            -> (B, C, C) all-pairs pair_dists
     round_dists(qctxs, ids (B, C))     -> (B, C)   one bulk round's block
                                                    (kernel ``flash_round``)
-    supports_expand(r) / expand(qctx, nodes (Q, W), adjacency)
-                                       -> rows, dists (Q, W, R): the fused
-                                          beam step (kernel ``flash_expand``)
+    supports_expand(r) / fused_beam(qctx, adjacency, beam (Q, ef) …)
+                                       -> the whole base-layer beam loop
+                                          in one launch (kernel ``flash_beam``)
     neighbor_dists_batch(qctx, nodes, ids (Q, W, R)) -> (Q, W, R): the
                                           unfused step (``flash_scan_blocked``)
     with_updated_edges(ids, nbr_ids)   -> backend  mirror commit hook
@@ -110,9 +110,9 @@ class FlashBackend:
     def neighbor_dists_batch(self, qctx, nodes, ids):  # noqa: ARG002
         return self.query_dists(qctx, ids)
 
-    def expand(self, qctx, nodes, adjacency):
+    def fused_beam(self, qctx, adjacency, beam_d, beam_ids, beam_exp, entry_ids, *, width, max_iters):
         raise NotImplementedError(
-            f"{type(self).__name__} has no fused expand() path"
+            f"{type(self).__name__} has no fused beam path"
         )
 
     def with_updated_edges(self, ids, nbr_ids):  # noqa: ARG002
@@ -180,9 +180,10 @@ class FlashBlockedBackend(FlashBackend):
     ``nbr_codes`` keeps each vertex's neighbors' codewords next to the
     vertex — (n, R, ⌈M/2⌉) uint8, two codewords per byte, for K ≤ 16
     coders; (n, R, M) int32 for K > 16 — so a beam step reads one
-    contiguous row per expanded vertex. It owns the fused ``expand`` step
-    (kernel ``flash_expand``) and the unfused ``neighbor_dists_batch``
-    (kernel ``flash_scan_blocked``); the two are bit-equal.
+    contiguous row per expanded vertex. It owns the fused base-layer beam
+    (kernel ``flash_beam``, whose every step is ``flash_expand``'s) and the
+    unfused step ``neighbor_dists_batch`` (kernel ``flash_scan_blocked``);
+    the two are bit-equal.
     """
 
     _fields = ("coder", "codes", "nbr_codes", "raw")
@@ -211,13 +212,14 @@ class FlashBlockedBackend(FlashBackend):
         base layer, where almost all acquisition traffic happens)."""
         return r == self.nbr_codes.shape[1]
 
-    def expand(self, qctx, nodes, adjacency):
-        """One fused beam step for nodes (Q, W): in-kernel gather of the
-        adjacency and packed code rows, shared-memory ADT lookups."""
-        rows, sums = ops.flash_expand(
-            nodes.to(torch.int32).contiguous(), adjacency, self.nbr_codes, qctx.adt_q
+    def fused_beam(self, qctx, adjacency, beam_d, beam_ids, beam_exp, entry_ids, *, width, max_iters):
+        """The base-layer beam loop of Q queries from their sorted initial
+        beam (Q, ef): one ``flash_beam`` launch (its plain version on the
+        CPU) -> (beam_d, beam_ids, n_dists, n_hops) of the loop."""
+        return ops.flash_beam(
+            qctx.adt_q, adjacency, self.nbr_codes, beam_d, beam_ids, beam_exp, entry_ids,
+            width=width, max_iters=max_iters,
         )
-        return rows, sums.to(torch.float32)
 
     def neighbor_dists_batch(self, qctx, nodes, ids):
         """Unfused beam step: the W expanded vertices' mirror rows scored

@@ -4,13 +4,13 @@ The bulk build bootstraps each layer's k-NN pools with whole-dataset
 refinement rounds (``engine.bulk_refine``, kernel ``flash_round``), commits
 them through MRNG selection and the batched reverse pass
 (``engine.bulk_commit``), then re-inserts any vertex the base layer cannot
-reach from the entry (``engine.repair_reachability``, whose beam searches
-run the ``flash_expand`` kernel).
+reach from the entry (``engine.repair_reachability``, whose base-layer
+beam searches run the ``flash_beam`` kernel).
 
 Search is the two-stage pipeline: greedy descent through the upper
-layers, a quantized multi-expansion beam on the base layer (kernel
-``flash_expand``, or ``flash_scan_blocked`` with ``fused=False``), then the
-reranker's second stage.
+layers, a quantized multi-expansion beam on the base layer (one
+``flash_beam`` launch, or the loop of ``flash_scan_blocked`` steps with
+``fused=False``), then the reranker's second stage.
 """
 
 from __future__ import annotations

@@ -30,6 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 SOURCES = {
     "flash_round": "flash_round.cu",
     "flash_expand": "flash_expand.cu",
+    "flash_beam": "flash_beam.cu",
     "flash_scan_blocked": "flash_scan_blocked.cu",
     "l2_batch": "l2_batch.cu",
     "flash_scan": "flash_scan.cu",
@@ -51,6 +52,7 @@ SIGNATURES = {
         "repro_flash_expand",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
+    "flash_beam": ("repro_flash_beam", [_P] * 12 + [_I] * 12 + [_P]),
     "flash_scan_blocked": (
         "repro_flash_scan_blocked", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),

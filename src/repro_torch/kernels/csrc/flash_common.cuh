@@ -1,7 +1,7 @@
 // Shared pieces of the Flash lookup-accumulate kernels (flash_round,
-// flash_expand, flash_scan_blocked, flash_scan).
+// flash_expand, flash_beam, flash_scan_blocked, flash_scan).
 //
-// All three score a code against a per-query (M, K) distance table:
+// All of them score a code against a per-query (M, K) distance table:
 // Σ_m table[m, code_m]. The table is 1 KiB at M = K = 16 with int32
 // levels, so each block stages its table in shared memory once and every
 // thread then does M shared-memory lookups per output.
@@ -40,6 +40,42 @@ __device__ __forceinline__ T row_sum(const T* table, const int32_t* __restrict__
     }
   } else {
     for (int m = 0; m < M; ++m) acc += table[m * K + __ldg(row + m)];
+  }
+  return acc;
+}
+
+// How a mirror slot's M codes are stored: (n, R, M) int32, or packed
+// (n, R, ⌈M/2⌉) uint8 read as 8-byte words (low nibble = even subspace).
+enum MirrorLayout { kUnpacked = 0, kPackedWords = 1 };
+
+// Σ_m table[m, code_m] over the codes of one mirror slot (neighbor j of
+// frontier vertex v is slot v·R + j), added in m order. A packed slot is
+// Mp bytes read as Mp / 8 8-byte loads (Mp % 8 == 0, 8-byte aligned rows)
+// and unpacked in registers; an unpacked slot is M int32 loads. flash_expand
+// and flash_beam both score their slots here, so the two cannot drift.
+template <typename T, int LAYOUT>
+__device__ __forceinline__ T score_slot(const T* table,
+                                        const void* __restrict__ mirror,
+                                        int64_t slot, int Mp, int M, int K) {
+  T acc = T(0);
+  if (LAYOUT == kPackedWords) {
+    const uint2* p = reinterpret_cast<const uint2*>(
+        static_cast<const uint8_t*>(mirror) + slot * Mp);
+    for (int wd = 0; wd < Mp / 8; ++wd) {
+      const uint2 v = __ldg(p + wd);
+      // bytes are little-endian: nibble t of a 32-bit word is subspace t
+      for (int t = 0; t < 8; ++t) {
+        const int m = 16 * wd + t;
+        if (m < M) acc += table[m * K + ((v.x >> (4 * t)) & 0xF)];
+      }
+      for (int t = 0; t < 8; ++t) {
+        const int m = 16 * wd + 8 + t;
+        if (m < M) acc += table[m * K + ((v.y >> (4 * t)) & 0xF)];
+      }
+    }
+  } else {
+    const int32_t* p = static_cast<const int32_t*>(mirror) + slot * M;
+    for (int m = 0; m < M; ++m) acc += table[m * K + __ldg(p + m)];
   }
   return acc;
 }

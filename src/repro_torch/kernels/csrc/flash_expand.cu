@@ -18,14 +18,16 @@
 // stages adt[q] in shared memory; thread j of a frontier vertex reads
 // adjacency[node, j] and its code row — Mp = 8 bytes at M = 16, one 8-byte
 // load — unpacks the nibbles in registers and sums M shared-memory
-// lookups. The TPU kernel gathered through scalar-prefetched BlockSpecs and
-// contracted a one-hot on the MXU; here each thread gathers its own row
+// lookups (repro_flash::score_slot, shared with flash_beam). The TPU
+// kernel gathered through scalar-prefetched BlockSpecs and contracted a
+// one-hot on the MXU; here each thread gathers its own row
 // and a lookup is one shared-memory load. A packed mirror is read only as
 // 8-byte words, so it needs M % 16 == 0 (the wrapper raises otherwise).
 
 #include "flash_common.cuh"
 
-enum MirrorLayout { kUnpacked = 0, kPackedWords = 1 };
+using repro_flash::kPackedWords;
+using repro_flash::kUnpacked;
 
 template <typename T, int LAYOUT>
 __global__ void flash_expand_kernel(const int32_t* __restrict__ nodes,
@@ -50,27 +52,7 @@ __global__ void flash_expand_kernel(const int32_t* __restrict__ nodes,
     const int node = nodes[q * W + w];
     const int64_t slot = (int64_t)(node > 0 ? node : 0) * R + j;
     rows_out[out_i] = adj[slot];
-    T acc = T(0);
-    if (LAYOUT == kPackedWords) {
-      const uint2* p = reinterpret_cast<const uint2*>(
-          static_cast<const uint8_t*>(mirror) + slot * Mp);
-      for (int wd = 0; wd < Mp / 8; ++wd) {
-        const uint2 v = __ldg(p + wd);
-        // bytes are little-endian: nibble t of a 32-bit word is subspace t
-        for (int t = 0; t < 8; ++t) {
-          const int m = 16 * wd + t;
-          if (m < M) acc += table[m * K + ((v.x >> (4 * t)) & 0xF)];
-        }
-        for (int t = 0; t < 8; ++t) {
-          const int m = 16 * wd + 8 + t;
-          if (m < M) acc += table[m * K + ((v.y >> (4 * t)) & 0xF)];
-        }
-      }
-    } else {
-      const int32_t* p = static_cast<const int32_t*>(mirror) + slot * M;
-      for (int m = 0; m < M; ++m) acc += table[m * K + __ldg(p + m)];
-    }
-    sums_out[out_i] = acc;
+    sums_out[out_i] = repro_flash::score_slot<T, LAYOUT>(table, mirror, slot, Mp, M, K);
   }
 }
 

@@ -1,4 +1,4 @@
-"""Wrappers of the port's CUDA kernels: the four Flash kernels, ``l2_batch``
+"""Wrappers of the port's CUDA kernels: the five Flash kernels, ``l2_batch``
 and ``sq_l2``.
 
 Dispatch is by where the tensors lie: CPU tensors take the plain PyTorch
@@ -19,6 +19,11 @@ Kernel notes (each source in ``csrc/`` carries the full note):
   Bound by the random adjacency and packed code rows (384 B per frontier
   vertex at R = 32, M = 16). One block per (query, vertex group), one
   8-byte code load per neighbor, nibbles unpacked in registers.
+* ``flash_beam`` replaces the same TPU kernel together with the beam loop
+  that launched it once per iteration: one launch runs the whole base-layer
+  beam search of Q queries. Bound by latency (dependent loads and
+  in-block merges), not bytes. One block per query, the beam, table and
+  candidate block in shared memory, visited as one bit per vertex.
 * ``flash_scan_blocked`` replaces
   ``repro/kernels/flash_scan.py::flash_scan_blocked_pallas``. Bound by the
   (G, M, B) code bytes; warps read one subspace's B codes as one line.
@@ -47,6 +52,7 @@ from repro_torch.utils import first_argmin
 launches: dict[str, int] = {
     "flash_round": 0,
     "flash_expand": 0,
+    "flash_beam": 0,
     "flash_scan_blocked": 0,
     "flash_scan_batch": 0,
     "l2_batch": 0,
@@ -62,6 +68,9 @@ _MAX_GRID_Y = 65535
 
 #: largest per-block table the kernels stage (static shared memory limit)
 _MAX_TABLE_BYTES = 48 * 1024
+
+#: dynamic shared memory one block may have on sm_90 (227 KB)
+_MAX_BLOCK_SMEM = 232448
 
 #: widest sq_l2 query the kernel stages (q and s2: 32 KiB of shared memory)
 _MAX_SQ_DIM = 4096
@@ -215,6 +224,96 @@ def flash_expand(
     _raise_on("flash_expand", err)
     count_launch("flash_expand")
     return rows, sums
+
+
+def _beam_smem_bytes(ef: int, w: int, r: int, m: int, k: int) -> int:
+    """flash_beam's dynamic shared memory per block, the layout
+    ``csrc/flash_beam.cu`` carves (passed to its entry point): table, 2
+    control words, two beam buffers of (d, id), the W·R slot ids and new and
+    kept distances, W nodes, two flag buffers."""
+    return 4 * (m * k + 2 + 4 * ef + 3 * w * r + w) + 2 * ef
+
+
+def flash_beam(
+    adt: torch.Tensor,
+    adjacency: torch.Tensor,
+    mirror: torch.Tensor,
+    beam_d: torch.Tensor,
+    beam_ids: torch.Tensor,
+    beam_exp: torch.Tensor,
+    entry_ids: torch.Tensor,
+    *,
+    width: int,
+    max_iters: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole base-layer beam search of Q queries: adt (Q, M, K) int32,
+    adjacency (n, R) int32, mirror (n, R, ⌈M/2⌉) uint8 or (n, R, M) int32,
+    the sorted initial beam (Q, ef) float32 d / int32 ids / bool expanded,
+    entry_ids (Q, E) int32 -> (beam_d (Q, ef), beam_ids (Q, ef), n_dists
+    (Q,) int64, n_hops (Q,) int64), the counts of the loop alone.
+
+    Entry and beam ids lie in [−1, n), as for the step loop: ``beam_search``
+    scores the entries by indexing the codes with them before this call."""
+    if adjacency.device.type == "cpu":
+        return ref.flash_beam(adt, adjacency, mirror, beam_d, beam_ids, beam_exp, entry_ids,
+                              width=width, max_iters=max_iters)
+    q, m, k = adt.shape
+    n, r = adjacency.shape
+    ef = beam_d.shape[1]
+    e = entry_ids.shape[1]
+    packed = mirror.dtype == torch.uint8
+    mp = mirror.shape[-1]
+    expect = (m + 1) // 2 if packed else m
+    if (mirror.shape[:2] != (n, r) or mp != expect or beam_d.shape != (q, ef)
+            or beam_ids.shape != (q, ef) or beam_exp.shape != (q, ef) or entry_ids.shape[0] != q):
+        raise ValueError(
+            f"flash_beam: adt {tuple(adt.shape)}, adjacency {tuple(adjacency.shape)}, mirror "
+            f"{tuple(mirror.shape)} {mirror.dtype}, beam {tuple(beam_d.shape)}/{tuple(beam_ids.shape)}/"
+            f"{tuple(beam_exp.shape)}, entries {tuple(entry_ids.shape)} do not fit "
+            f"(expected mirror last dim {expect})"
+        )
+    if adt.dtype != torch.int32:
+        raise TypeError(f"flash_beam: the kernel takes int32 level tables, got {adt.dtype}")
+    if (adjacency.dtype, beam_ids.dtype, entry_ids.dtype) != (torch.int32,) * 3:
+        raise TypeError("flash_beam: adjacency, beam ids and entries must be int32")
+    if beam_d.dtype != torch.float32 or beam_exp.dtype != torch.bool:
+        raise TypeError("flash_beam: the beam's d must be float32 and its flags bool")
+    if not packed and mirror.dtype != torch.int32:
+        raise TypeError(f"flash_beam: mirror must be uint8 or int32, got {mirror.dtype}")
+    if packed and (mp % 8 != 0 or mirror.data_ptr() % 8 != 0):
+        raise ValueError(
+            f"flash_beam: a packed mirror is read as 8-byte words: needs M % 16 == 0 "
+            f"and an 8-byte aligned start (M={m})"
+        )
+    if not 1 <= width * r <= 1024:
+        raise ValueError(f"flash_beam: W·R = {width}·{r} must lie in [1, 1024] (one thread per slot)")
+    if not 1 <= width <= ef:
+        raise ValueError(f"flash_beam: width {width} must lie in [1, ef={ef}]")
+    smem = _beam_smem_bytes(ef, width, r, m, k)
+    if smem > _MAX_BLOCK_SMEM:
+        raise ValueError(
+            f"flash_beam: ef={ef}, W={width}, R={r}, (M, K)=({m}, {k}) need {smem} B of shared "
+            f"memory per block, above the {_MAX_BLOCK_SMEM} B a block may have"
+        )
+    _check_cuda("flash_beam", adjacency.device, adt=adt, adjacency=adjacency, mirror=mirror,
+                beam_d=beam_d, beam_ids=beam_ids, beam_exp=beam_exp, entry_ids=entry_ids)
+    dev = adjacency.device
+    out_d = torch.empty((q, ef), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, ef), dtype=torch.int32, device=dev)
+    nd = torch.zeros(q, dtype=torch.int64, device=dev)
+    nh = torch.zeros(q, dtype=torch.int64, device=dev)
+    if q == 0:
+        return out_d, out_i, nd, nh
+    visited = torch.empty((q, (n + 31) // 32), dtype=torch.int32, device=dev)
+    err = build.kernel("flash_beam")(
+        adt.data_ptr(), adjacency.data_ptr(), mirror.data_ptr(), beam_d.data_ptr(),
+        beam_ids.data_ptr(), beam_exp.data_ptr(), entry_ids.data_ptr(), visited.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(), nd.data_ptr(), nh.data_ptr(),
+        q, n, r, mp, m, k, e, ef, width, max_iters, smem, int(packed), _stream(adjacency),
+    )
+    _raise_on("flash_beam", err)
+    count_launch("flash_beam")
+    return out_d, out_i, nd, nh
 
 
 def flash_scan_blocked(blocks: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:

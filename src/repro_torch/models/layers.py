@@ -17,6 +17,8 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.utils import resolve_device
+
 
 def dense_init(gen: torch.Generator, shape: tuple[int, ...], device) -> torch.Tensor:
     """A normal draw scaled by 1/√fan_in (fan_in = shape[0])."""
@@ -72,8 +74,9 @@ class GQAAttention(nn.Module):
     reference's ``init_gqa(qkv_bias=True)`` / ``gqa_forward``)."""
 
     def __init__(self, gen: torch.Generator, *, d_model: int, n_heads: int, n_kv: int, head_dim: int,
-                 device=None):
+                 device: str | torch.device = "cuda"):
         super().__init__()
+        device = resolve_device(device)
         self.n_heads, self.n_kv, self.head_dim = n_heads, n_kv, head_dim
         self.wq = nn.Parameter(dense_init(gen, (d_model, n_heads * head_dim), device))
         self.wk = nn.Parameter(dense_init(gen, (d_model, n_kv * head_dim), device))
@@ -97,8 +100,9 @@ class GQAAttention(nn.Module):
 class SwiGLU(nn.Module):
     """``(silu(x @ wg) * (x @ wu)) @ wd``."""
 
-    def __init__(self, gen: torch.Generator, *, d_model: int, d_ff: int, device=None):
+    def __init__(self, gen: torch.Generator, *, d_model: int, d_ff: int, device: str | torch.device = "cuda"):
         super().__init__()
+        device = resolve_device(device)
         self.wg = nn.Parameter(dense_init(gen, (d_model, d_ff), device))
         self.wu = nn.Parameter(dense_init(gen, (d_model, d_ff), device))
         self.wd = nn.Parameter(dense_init(gen, (d_ff, d_model), device))

@@ -15,6 +15,8 @@ routes are equal except where the two nearest centroids are within that
 atol of each other (a near tie, counted and bounded). ``flash_scan`` adds
 in m order like its plain version, so both table kinds must be equal;
 ``sq_l2`` is allclose with rtol 1e-5 (non-negative terms in another order).
+``flash_beam`` (int32 tables only) must equal the loop of ``flash_expand``
+launches it replaces bit for bit: ids, dists and both counts.
 """
 
 from __future__ import annotations
@@ -210,3 +212,66 @@ def test_cuda_flash_scan_and_sq_l2_raise_on_what_they_do_not_take(cuda_device):
     with pytest.raises(TypeError):
         tops.sq_l2(q[:8], torch.zeros((2, 8), dtype=torch.int32, device=cuda_device),
                    torch.ones(8, dtype=torch.float64, device=cuda_device))
+
+
+def _beam_inputs(rng, dev, *, n, r, q, ef, levels, packed, e=2):
+    """A random n-vertex graph with −1 holes and repeated vertices, its
+    mirror, (Q, M, K) int32 tables of ``levels`` levels and the sorted
+    initial beam from E entries (one of them −1)."""
+    m = 16
+    codes = torch.from_numpy(rng.integers(0, K, (n, m)).astype(np.int32))
+    adj = torch.from_numpy(rng.integers(0, n, (n, r)).astype(np.int32))
+    adj[torch.from_numpy(rng.random((n, r)) < 0.1)] = -1
+    adj[: n // 2, 3] = adj[: n // 2, 0]
+    mirror = torch.where(adj[..., None] >= 0, codes[adj.clamp_min(0).long()], 0)
+    if packed:
+        mirror = tflash.pack_codes(mirror)
+    adt = torch.from_numpy(rng.integers(0, levels, (q, m, K)).astype(np.int32))
+    entries = torch.from_numpy(rng.integers(0, n, (q, e)).astype(np.int32))
+    entries[:, -1] = -1
+    d_e = tflash.adc_lookup(adt, codes[entries.clamp_min(0).long()]).to(torch.float32)
+    d_e = torch.where(entries >= 0, d_e, float("inf"))
+    beam = tref.initial_beam(entries, d_e, ef)
+    return [t.to(dev).contiguous() for t in (adt, adj, mirror, *beam, entries)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("ef,w,levels", [(64, 1, 256), (256, 4, 4), (32, 8, 256)])
+def test_cuda_flash_beam_equals_the_step_loop(cuda_device, packed, ef, w, levels):
+    """One flash_beam launch against the loop of flash_expand launches it
+    replaces, on the same inputs: ids, dists and both counts equal."""
+    rng = np.random.default_rng(ef + w)
+    adt, adj, mirror, beam_d, beam_ids, beam_exp, entries = _beam_inputs(
+        rng, cuda_device, n=20000, r=32, q=300, ef=ef, levels=levels, packed=packed)
+    max_iters = -(-(4 * ef + 8) // w)
+    before = tops.launches["flash_beam"]
+    got = tops.flash_beam(adt, adj, mirror, beam_d, beam_ids, beam_exp, entries, width=w,
+                          max_iters=max_iters)
+    torch.cuda.synchronize()
+    assert tops.launches["flash_beam"] == before + 1
+
+    def step(nodes):
+        rows, sums = tops.flash_expand(nodes, adj, mirror, adt)
+        return rows, sums.to(torch.float32)
+
+    want = tref.beam_loop(step, beam_d, beam_ids, beam_exp, entries, adj.shape[0], width=w,
+                          max_iters=max_iters)
+    for g, x, name in zip(got, want, ("dists", "ids", "n_dists", "n_hops")):
+        assert torch.equal(g.cpu(), x.cpu()), name
+    assert int(got[3].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_beam_raises_on_what_it_does_not_take(cuda_device):
+    rng = np.random.default_rng(0)
+    args = _beam_inputs(rng, cuda_device, n=500, r=32, q=4, ef=16, levels=256, packed=True)
+    adt, rest = args[0], args[1:]
+    with pytest.raises(TypeError, match="int32"):
+        tops.flash_beam(adt.to(torch.float32), *rest, width=1, max_iters=8)
+    with pytest.raises(ValueError, match="1024"):  # 33 rows of 32 slots
+        tops.flash_beam(adt, *rest[:2], *(t.repeat(1, 3) for t in rest[2:5]), rest[5], width=33,
+                        max_iters=8)
+    big = _beam_inputs(rng, cuda_device, n=500, r=32, q=2, ef=20000, levels=256, packed=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        tops.flash_beam(*big, width=1, max_iters=8)

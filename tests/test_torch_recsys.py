@@ -109,7 +109,7 @@ def test_gqa_attention_matches_reference(n_heads, n_kv, causal):
     p = jl.init_gqa(jax.random.PRNGKey(3), d_model=d, n_heads=n_heads, n_kv=n_kv, head_dim=hd, qkv_bias=True)
     p = {k: np.array(v) + 0.1 * (k[0] == "b") for k, v in p.items()}  # non-zero biases
     attn = tl.GQAAttention(torch.Generator().manual_seed(0), d_model=d, n_heads=n_heads, n_kv=n_kv,
-                           head_dim=hd)
+                           head_dim=hd, device="cpu")
     with torch.no_grad():
         for k, v in p.items():
             getattr(attn, k).copy_(torch.from_numpy(v))
@@ -120,6 +120,18 @@ def test_gqa_attention_matches_reference(n_heads, n_kv, causal):
     with torch.no_grad():
         got = attn(torch.from_numpy(x), torch.from_numpy(np.array(pos)), causal=causal)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("make", [
+    lambda g: tl.GQAAttention(g, d_model=32, n_heads=4, n_kv=2, head_dim=8),
+    lambda g: tl.SwiGLU(g, d_model=32, d_ff=64),
+], ids=["GQAAttention", "SwiGLU"])
+def test_layers_default_to_the_card(monkeypatch, make):
+    """Like every entry point, the layers build on "cuda" unless asked for
+    the CPU, and raise where there is no card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make(torch.Generator().manual_seed(0))
 
 
 def test_sample_training_batch_matches_reference(monkeypatch):
