@@ -16,9 +16,13 @@ non-zero and no result line is printed):
             ``torch.cdist``; ``flash_beam`` (1,000 queries over the
             phase's n-vertex graph, ef ∈ {64, 256}, W ∈ {1, 4}, and the
             build's 32-query insert batch) is also held bit-equal to, and
-            timed beside, the loop of ``flash_expand`` launches it replaces. ``torch.profiler``
+            timed beside, the loop of ``flash_expand`` launches it
+            replaces; ``l2_batch`` is timed with L2 cold over a rotation of
+            chunks (and warm), against its 3xTF32 and float32-FMA bounds,
+            and held at the card tests' odd shapes too. ``torch.profiler``
             gives the device time of ``flash_expand``,
-            ``flash_scan_blocked`` and ``flash_beam`` beside the events'.
+            ``flash_scan_blocked``, ``flash_beam`` and ``l2_batch`` beside
+            the events'.
 3. build    ``AnnIndex.build(algo="hnsw", backend="flash_blocked",
             strategy="bulk")`` over the ``--n`` base rows of one
             ``vector_dataset(seed=0, n=--n + 1,000, d=128, n_clusters=64)``
@@ -26,7 +30,9 @@ non-zero and no result line is printed):
 4. search   1,000 held-out queries, k = 10, exact rerank, ef ∈ {64, 256},
             width ∈ {1, 4}: QPS, recall@10 and ``flash_beam`` launches
             against the port's ``exact_knn`` (kernel ``l2_batch``), itself
-            cross-checked on 100 queries against a plain loop; the unfused
+            cross-checked on all 1,000 queries against a plain loop (ids
+            may differ only at near ties; they are counted), and its time
+            split into ``l2_batch`` device time and the rest; the unfused
             step loop must return the fused beam's ids; a profiler window
             over one search (ef = 64, W = 1) each way gives the device busy
             share and the top five kernels by device time.
@@ -39,7 +45,10 @@ non-zero and no result line is printed):
             ``--n`` − 2,000 rows into 64 balanced segments (inline,
             each a bulk Flash-HNSW build): assignment
             seconds (bootstrap, streaming pass), segment sizes, the sum and
-            the largest of the per-segment build seconds, n_dists.
+            the largest of the per-segment build seconds, n_dists; the
+            rows whose segment differs when the same capacity-capped
+            routing runs on the plain version's distances (on the card,
+            and on the CPU against the card), counted.
 7. segmented_search  the held-out queries, k = 10, exact rerank, ef ∈ {64,
             256}, W = 4, the default fan-out (one card: the loop over
             segments): QPS, recall@10 against phase 4's ground truth,
@@ -94,6 +103,8 @@ GRAPH_EF = (96, 512)  # the example's ef_search (examples/retrieval_serving.py:7
 DELETE_ROWS = 10000  # ids the scale-out path deletes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 CUDA_CORE_OPS_PER_S = 67e12  # float32 outside the tensor cores; int32 adds counted at it
+TF32_TENSOR_OPS_PER_S = 495e12  # dense TF32 on the tensor cores, NVIDIA data sheet
+L2_COLD_BYTES = 64 << 20  # operands rotated per l2_batch timing: above the 50 MB L2
 
 REPLACES = {
     "flash_round": "src/repro/kernels/flash_round.py:49",
@@ -196,9 +207,9 @@ def device_window(fn) -> dict:
             "top5": [{"name": k[:120], "ms": ms, "count": c} for k, (ms, c) in top]}
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -242,6 +253,7 @@ def check_kernels(dev, n: int) -> dict:
     out["flash_round"] = dict(
         shape=[b, c, m], max_abs_err=errs[torch.int32], max_abs_err_f32=errs[torch.float32],
         ms=time_ms(lambda: ops.flash_round(codes, adts)),
+        device_ms=profiler_kernel_ms(lambda: ops.flash_round(codes, adts), "flash_round_kernel"),
         plain_ms=time_ms(lambda: ref.flash_round(codes, adts), reps=3, inner=2),
         bound_ms=bnd, bound_by=by, library_ms=None,
     )
@@ -297,24 +309,7 @@ def check_kernels(dev, n: int) -> dict:
     del mirror_i32
     out.update(check_flash_beam(ints, adjacency, n, m, k, r))
 
-    # l2_batch: a ground-truth tile (exact_knn, 1,000 queries x one 8,192-row
-    # chunk) and an assignment chunk (65,536 rows x 64 centroids)
-    for key, (nn, cc) in (("l2_batch_gt", (q, 8192)), ("l2_batch_assign", (65536, 64))):
-        x = torch.randn((nn, 128), generator=g, device=dev) * 10
-        y = torch.randn((cc, 128), generator=g, device=dev) * 10
-        got, want = ops.l2_batch(x, y), ref.l2_batch(x, y)
-        atol = l2_atol(x, y)
-        err = float((got - want).abs().max())
-        if not torch.allclose(got, want, rtol=1e-5, atol=atol):
-            raise AssertionError(f"l2_batch {nn}x{cc}: off by {err} (atol {atol})")
-        bnd, by = bound_ms(4 * (nn * 128 + cc * 128 + nn * cc), 2 * nn * cc * 128)
-        out[key] = dict(
-            shape=[nn, cc, 128], max_abs_err=err, atol=atol,
-            ms=time_ms(lambda: ops.l2_batch(x, y)),
-            plain_ms=time_ms(lambda: ref.l2_batch(x, y)),
-            bound_ms=bnd, bound_by=by,
-            library_ms=time_ms(lambda: torch.cdist(x, y, compute_mode="use_mm_for_euclid_dist")),
-        )
+    out.update(check_l2_batch(dev, g, q))
     # nearest_centroid: routed growth's shape, with a banned mask
     x = torch.randn((2000, 128), generator=g, device=dev) * 10
     cents = torch.randn((64, 128), generator=g, device=dev) * 10
@@ -341,6 +336,7 @@ def check_kernels(dev, n: int) -> dict:
     out["flash_scan"] = dict(
         shape=[nc, m, k], max_abs_err=errs[torch.int32], max_abs_err_f32=errs[torch.float32],
         ms=time_ms(lambda: ops.flash_scan(codes, adt)),
+        device_ms=profiler_kernel_ms(lambda: ops.flash_scan(codes, adt), "flash_scan_kernel"),
         plain_ms=time_ms(lambda: ref.flash_scan(codes, adt), reps=3, inner=2),
         bound_ms=bnd, bound_by=by, library_ms=None,
     )
@@ -358,11 +354,86 @@ def check_kernels(dev, n: int) -> dict:
     out["sq_l2"] = dict(
         shape=[ns, ds], max_abs_err=err, rtol=1e-5,
         ms=time_ms(lambda: ops.sq_l2(qc, db, s2)),
+        device_ms=profiler_kernel_ms(lambda: ops.sq_l2(qc, db, s2), "sq_l2_kernel"),
         plain_ms=time_ms(lambda: ref.sq_l2(qc, db, s2), reps=3, inner=2),
         bound_ms=bnd, bound_by=by, library_ms=None,
     )
     del db
     torch.cuda.synchronize()
+    return out
+
+
+def check_l2_batch(dev, g, q: int) -> dict:
+    """Phase 2's l2_batch rows: a ground-truth tile (exact_knn: the 1,000
+    queries x one 8,192-row chunk) and an assignment chunk (65,536 rows x 64
+    centroids), each held to its plain version and timed two ways: ``ms``
+    as the path sees it, with L2 cold (a rotation of distinct chunks, more
+    than 50 MB in all: data chunks for the ground truth, row chunks for the
+    assignment), and ``ms_warm`` on the same inputs again (the method of
+    the kernel table's earlier rows); ``device_ms`` is the profiler's kernel
+    time over the cold rotation. ``bound_ms`` is the 3xTF32 bound (3 ·
+    2·N·C·D at TF32's rate), the float32-FMA bound beside it. Then the card
+    tests' odd shapes, compared only."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    out = {}
+    d = 128
+    for key, (nn, cc) in (("l2_batch_gt", (q, 8192)), ("l2_batch_assign", (65536, 64))):
+        rotate = "y" if key == "l2_batch_gt" else "x"
+        per = 4 * d * (cc if rotate == "y" else nn)
+        reps = max(2, -(-L2_COLD_BYTES // per))
+        xs = [torch.randn((nn, d), generator=g, device=dev) * 10 for _ in range(1 if rotate == "y" else reps)]
+        ys = [torch.randn((cc, d), generator=g, device=dev) * 10 for _ in range(reps if rotate == "y" else 1)]
+        pairs = [(xs[i % len(xs)], ys[i % len(ys)]) for i in range(reps)]
+        err, atol = 0.0, 0.0
+        for x, y in pairs[:2]:
+            got, want = ops.l2_batch(x, y), ref.l2_batch(x, y)
+            a = l2_atol(x, y)
+            e = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=1e-5, atol=a):
+                raise AssertionError(f"l2_batch {nn}x{cc}: off by {e} (atol {a})")
+            err, atol = max(err, e), max(atol, a)
+        del got, want
+        cycle = itertools.cycle(pairs)
+
+        def cold(cycle=cycle):
+            return ops.l2_batch(*next(cycle))
+
+        x, y = pairs[0]
+        nbytes = 4 * (nn * d + cc * d + nn * cc)
+        bnd, by = bound_ms(nbytes, 3 * 2 * nn * cc * d, TF32_TENSOR_OPS_PER_S)
+        bnd_fma, by_fma = bound_ms(nbytes, 2 * nn * cc * d)
+        out[key] = dict(
+            shape=[nn, cc, d], max_abs_err=err, atol=atol, cold_rotation=reps,
+            ms=time_ms(cold, reps=5, inner=max(10, 2 * reps)),
+            ms_warm=time_ms(lambda: ops.l2_batch(x, y)),
+            device_ms=profiler_kernel_ms(cold, "l2_batch_kernel", reps=2 * reps),
+            plain_ms=time_ms(lambda: ref.l2_batch(x, y)),
+            bound_ms=bnd, bound_by=by, bound_fp32_fma_ms=bnd_fma, bound_fp32_fma_by=by_fma,
+            library_ms=time_ms(lambda: torch.cdist(x, y, compute_mode="use_mm_for_euclid_dist")),
+        )
+        del xs, ys, pairs, cycle
+    # the card tests' odd shapes (compare only): D % 4 ≠ 0 (a padded copy),
+    # ragged C and N, a view off TMA's 16-byte alignment
+    odd = []
+    for nn, cc, dd, skew in ((1, 8191, 25, 0), (300, 288, 100, 0), (77, 1, 960, 0), (1, 64, 960, 0),
+                             (129, 8191, 100, 0), (2000, 64, 25, 0), (5, 1, 3, 0), (300, 70, 3, 1),
+                             (300, 70, 128, 1)):
+        x = (torch.randn((nn * dd + skew,), generator=g, device=dev) * 3.0)[skew:].view(nn, dd)
+        y = torch.randn((cc, dd), generator=g, device=dev) * 3.0
+        before = ops.launches["l2_batch_pad"]
+        got, want = ops.l2_batch(x, y), ref.l2_batch(x, y)
+        a = l2_atol(x, y)
+        e = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=1e-5, atol=a):
+            raise AssertionError(f"l2_batch {nn}x{cc}x{dd} (skew {skew}): off by {e} (atol {a})")
+        odd.append({"shape": [nn, cc, dd], "skew_floats": skew, "max_abs_err": e, "atol": a,
+                    "pad_copies": ops.launches["l2_batch_pad"] - before})
+    out["l2_batch_odd_shapes"] = odd
     return out
 
 
@@ -476,6 +547,48 @@ def route_flips(route, plain_d2, atol: float) -> tuple[int, int]:
     return int(diff.sum()), int((diff & (gap <= 2 * atol)).sum())
 
 
+def assignment_cross_check(rows_np, plan, dev) -> dict:
+    """The streaming assignment's segments (the kernel's distances, then the
+    capacity-capped greedy routing ``graph/sharded._route_balanced``)
+    against the same routing, chunk by chunk with the same capacity, on the
+    plain version's distances on the card and on the CPU (no kernel runs).
+    A full segment keeps the rows closest to it, so a difference in the
+    last bits of two rows' distances to it moves a row, and each move
+    shifts the capacity left for later rows and chunks: the counts measure
+    that sensitivity of the routing. ``near`` counts the moved rows whose
+    two segments lie within 2·atol by the plain distances."""
+    import torch
+
+    from repro_torch.graph.sharded import _route_balanced
+    from repro_torch.kernels import ref
+
+    got = plan.locate()[:, 0]
+    cents = torch.from_numpy(plan.centroids)
+    cap = -(-plan.n // plan.n_segments)
+    routes = {}
+    d2_card = []
+    for where, c in (("card", cents.to(dev)), ("cpu", cents)):
+        remaining = np.full(plan.n_segments, cap, np.int64)
+        out = np.empty(plan.n, np.int64)
+        for s in range(0, plan.n, plan.chunk_size):
+            x = torch.from_numpy(np.ascontiguousarray(rows_np[s:s + plan.chunk_size])).to(c.device)
+            d2 = ref.l2_batch(x, c).cpu().numpy()
+            out[s:s + x.shape[0]] = _route_balanced(d2, remaining)
+            if where == "card":
+                d2_card.append((d2, l2_atol(x, c)))
+        routes[where] = out
+    moved = np.nonzero(got != routes["card"])[0]
+    near = 0
+    for s, (d2, atol) in zip(range(0, plan.n, plan.chunk_size), d2_card):
+        rows = moved[(moved >= s) & (moved < s + d2.shape[0])]
+        gap = np.abs(d2[rows - s, got[rows]] - d2[rows - s, routes["card"][rows]])
+        near += int((gap <= 2 * atol).sum())
+    first = int(moved[0] // plan.chunk_size) if moved.size else None
+    return {"rows": plan.n, "kernel_vs_plain_card": int(moved.size), "near": near,
+            "first_chunk_that_differs": first,
+            "plain_card_vs_plain_cpu": int((routes["card"] != routes["cpu"]).sum())}
+
+
 def plain_knn(data, queries, k: int, chunk: int = 1 << 17):
     """Chunked exact k-NN in plain torch (a cross-check, not the path):
     (ids (Q, k) int64, squared dists (Q, k))."""
@@ -497,20 +610,39 @@ def plain_knn(data, queries, k: int, chunk: int = 1 << 17):
 def knn_cross_check(gt_ids, gt_d, data, queries, k: int = 10) -> dict:
     """The port's exact_knn against the plain loop on ``queries``: id sets
     equal except where the plain k-th and (k+1)-th distances are within the
-    l2 tolerance (a near tie), sorted distances allclose."""
+    l2 tolerance (a near tie), sorted distances allclose. Counts the queries
+    whose sets differ and the ground-truth ids outside the plain set."""
     import torch
 
     ids_p, d_p = plain_knn(data, queries, k + 1)
     atol = l2_atol(queries, data)
-    differ = near = 0
+    got, want = gt_ids.long().cpu(), ids_p[:, :k].cpu()
+    gap = (d_p[:, k] - d_p[:, k - 1]).cpu()
+    differ = near = flipped = 0
     for i in range(queries.shape[0]):
-        if set(gt_ids[i].tolist()) != set(ids_p[i, :k].tolist()):
+        extra = len(set(got[i].tolist()) - set(want[i].tolist()))
+        if extra:
             differ += 1
-            near += int(float(d_p[i, k] - d_p[i, k - 1]) <= 2 * atol)
+            flipped += extra
+            near += int(float(gap[i]) <= 2 * atol)
     if differ > near or not torch.allclose(gt_d, d_p[:, :k], rtol=1e-5, atol=atol):
         raise AssertionError(f"exact_knn vs the plain loop: {differ} id sets differ, {near} at near ties")
     return {"queries": int(queries.shape[0]), "id_sets_differ": differ, "near_ties": near,
-            "max_abs_dist_err": float((gt_d - d_p[:, :k]).abs().max())}
+            "ids_differ": flipped, "max_abs_dist_err": float((gt_d - d_p[:, :k]).abs().max())}
+
+
+def time_split(fn, kernel: str) -> dict:
+    """One call of ``fn`` under the profiler: its host ms to a synchronized
+    end, and its device ms in kernels whose name holds ``kernel`` and in the
+    others (with their counts)."""
+    prof, wall = profiled(fn)
+    if prof is None:
+        return {"error": wall}
+    ev = device_events(prof)
+    mine = [e.time_range.elapsed_us() / 1e3 for e in ev if kernel in e.name]
+    rest = [e.time_range.elapsed_us() / 1e3 for e in ev if kernel not in e.name]
+    return {"window_ms": wall, f"{kernel}_ms": sum(mine), f"{kernel}_count": len(mine),
+            "other_device_ms": sum(rest), "other_device_count": len(rest)}
 
 
 def exhaustive_scan_recall(index, queries, gt, c: int, chunk: int = 1 << 16) -> float:
@@ -715,6 +847,7 @@ def scale_out_path(base_np, queries, gt, spill: str, t_start: float) -> tuple[di
     assign_l2 = ops.launches["l2_batch"] - before["l2_batch"]
     if assign_l2 == 0:
         raise AssertionError("the streaming assignment never launched l2_batch")
+    assign_check = assignment_cross_check(base_np[: n - ADD_ROWS], plan, dev)
     res = builder.build(plan=plan)
     coll = res.index
     walls = [m["wall_s"] for m in res.segments]
@@ -730,7 +863,8 @@ def scale_out_path(base_np, queries, gt, spill: str, t_start: float) -> tuple[di
           "segment_build_s": walls, "phase_s_sum": phase_s, "repair_unreachable": unreach,
           "n_dists": sum(m["n_dists"] for m in res.segments),
           "n_dists_by_phase": {k: sum(m["phases"][k] for m in res.segments) for k in res.segments[0]["phases"]},
-          "assign_l2_batch_launches": assign_l2, "launches": dict(ops.launches),
+          "assign_l2_batch_launches": assign_l2, "assign_cross_check": assign_check,
+          "launches": dict(ops.launches),
           "elapsed_s": time.perf_counter() - t_start})
     if sum(plan.seg_sizes) != n - ADD_ROWS:
         raise AssertionError("the segments do not hold every streamed row")
@@ -1059,7 +1193,7 @@ def main() -> int:
     gt_s = time.perf_counter() - t0
     gt_l2 = ops.launches["l2_batch"] - build_launches["l2_batch"]
     gt = gt_i32.long()
-    gt_check = knn_cross_check(gt[:100], gt_d[:100], data, queries[:100])
+    gt_check = knn_cross_check(gt, gt_d, data, queries)
     results = []
     fused_ids = {}
     for ef in (64, 256):
@@ -1087,7 +1221,9 @@ def main() -> int:
     for name in ("flash_round", "flash_beam", "flash_scan_blocked", "l2_batch"):
         if launches[name] == 0:
             raise AssertionError(f"the main path never launched {name}")
-    # where the device time goes in one search (after the counts were read)
+    # where the device time goes in one search and in the ground truth
+    # (after the counts were read)
+    gt_split = time_split(lambda: exact_knn(queries, data, k=10), "l2_batch_kernel")
     windows = {
         "flash_beam": device_window(lambda: index.search(queries, k=10, ef=64, width=1)),
         "step_loop": device_window(lambda: index.search(queries, k=10, ef=64, width=1, fused=False)),
@@ -1100,7 +1236,7 @@ def main() -> int:
     best = max(r["recall@10"] for r in results if r["ef"] == 256)
     emit({"phase": "search", "queries": QUERIES, "k": 10, "results": results,
           "exhaustive_scan_256_recall@10": scan_rec, "unfused_equals_fused": True,
-          "ground_truth_s": gt_s, "ground_truth_cross_check": gt_check,
+          "ground_truth_s": gt_s, "ground_truth_cross_check": gt_check, "ground_truth_split": gt_split,
           "profile_ef64_w1": windows, "launches": launches, "elapsed_s": time.perf_counter() - t_start})
     if best < 0.5 * scan_rec:
         raise AssertionError(
@@ -1138,9 +1274,15 @@ def main() -> int:
                      "max_abs_err": kr["max_abs_err"], "ms": kr["ms"],
                      "plain_ms": kr["plain_ms"], "bound_ms": kr["bound_ms"], "bound_by": kr["bound_by"],
                      "library_ms": kr["library_ms"], "shape": kr["shape"]})
-        rows[-1].update({f: kr[f] for f in ("device_ms", "step_loop_ms", "workspace_bytes") if f in kr})
+        rows[-1].update({f: kr[f] for f in ("device_ms", "step_loop_ms", "workspace_bytes", "ms_warm",
+                                            "bound_fp32_fma_ms") if f in kr})
+        if isinstance(kr.get("device_ms"), float):  # events minus device: the wrapper's host cost
+            rows[-1]["host_us_per_call"] = (kr["ms"] - kr["device_ms"]) * 1e3
         if name == "l2_batch":
             rows[-1]["launches_by_use"] = l2_uses
+            rows[-1]["assignment_shape"] = {f: kern["l2_batch_assign"][f] for f in (
+                "shape", "max_abs_err", "ms", "ms_warm", "device_ms", "plain_ms", "bound_ms",
+                "bound_fp32_fma_ms", "library_ms")}
         if name == "flash_beam":
             rows[-1]["launches_by_use"] = {"main_build": build_launches[name],
                                            "main_search": launches[name] - build_launches[name],

@@ -56,7 +56,7 @@ SIGNATURES = {
     "flash_scan_blocked": (
         "repro_flash_scan_blocked", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
-    "l2_batch": ("repro_l2_batch", [_P, _P, _P, _I, _I, _I, _P]),
+    "l2_batch": ("repro_l2_batch", [_P, _P, _P] + [_I] * 6 + [_P]),
     "flash_scan": ("repro_flash_scan", [_P, _P, _P, _L, _I, _I, _I, _I, _P]),
     "sq_l2": ("repro_sq_l2", [_P, _P, _P, _P, _L, _I, _I, _P]),
 }

@@ -28,9 +28,14 @@ Kernel notes (each source in ``csrc/`` carries the full note):
   ``repro/kernels/flash_scan.py::flash_scan_blocked_pallas``. Bound by the
   (G, M, B) code bytes; warps read one subspace's B codes as one line.
 * ``l2_batch`` replaces ``repro/kernels/l2_batch.py::l2_batch_pallas``.
-  Bound by its 2·N·C·D float32 FMA operations (about equal to its bytes at
-  the assignment chunk). 64 × 64 output tiles, 4 × 4 per thread, D staged
-  32 columns at a time in shared memory, norms summed in-kernel.
+  The product runs on the tensor cores at float32 accuracy: 3xTF32 (each
+  operand split into TF32 hi and lo parts, hi·hi + hi·lo + lo·hi into one
+  float32 wgmma accumulator), operands brought in by TMA through a ring of
+  shared-memory stages, norms summed in-kernel in float32. Bound by
+  operations at the ground-truth tile, by bytes at the assignment chunk.
+  :func:`_l2_plan` picks the tile shape (C ≤ 64: y resident per block), the
+  ring, the persistent grid and whether an operand is first copied into a
+  zero-padded (·, ⌈D/4⌉·4) layout TMA can read (``launches["l2_batch_pad"]``).
 * ``flash_scan`` replaces ``repro/kernels/flash_scan.py::flash_scan_pallas``.
   Bound by the (N, M) int32 codes (67.1 MB per query at the 1M-item
   catalog). Table in shared memory, one row per thread, 16-byte code loads.
@@ -41,7 +46,9 @@ Kernel notes (each source in ``csrc/`` carries the full note):
 
 from __future__ import annotations
 
+import functools
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -56,15 +63,12 @@ launches: dict[str, int] = {
     "flash_scan_blocked": 0,
     "flash_scan_batch": 0,
     "l2_batch": 0,
+    "l2_batch_pad": 0,
     "flash_scan": 0,
     "sq_l2": 0,
 }
 
 _LAUNCH_LOCK = threading.Lock()
-
-#: column tiles l2_batch's grid may hold (CUDA's grid.y limit)
-_L2_TILE = 64
-_MAX_GRID_Y = 65535
 
 #: largest per-block table the kernels stage (static shared memory limit)
 _MAX_TABLE_BYTES = 48 * 1024
@@ -371,6 +375,80 @@ def flash_scan_batch(rows: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
     return out
 
 
+#: l2_batch's tiles (csrc/l2_batch.cu): x rows per tile, D columns per
+#: slice, y rows per tile in the wide and the narrow (y resident) shape
+_L2_BM, _L2_BK, _L2_BN_WIDE, _L2_BN_NARROW = 128, 32, 128, 64
+#: ring stages l2_batch takes at most
+_L2_MAX_STAGES = 8
+
+
+class L2Plan(NamedTuple):
+    """How ``l2_batch`` launches its kernel for one call."""
+
+    narrow: bool  # y resident per block (BN = 64), else BN = 128
+    bn: int  # y rows per output tile
+    d_pad: int  # the row length the kernel reads: ⌈D/4⌉·4
+    pad_x: bool  # copy x into a zero-padded (N, d_pad) tensor first
+    pad_y: bool  # the same for y
+    stages: int  # the TMA ring's depth
+    tiles: int  # output tiles
+    grid: int  # persistent blocks: min(tiles, SMs)
+
+
+def _l2_smem(bn: int, resident: bool, nk: int, stages: int) -> int:
+    """csrc/l2_batch.cu::smem_bytes: 1 KB of alignment slack, the ring of
+    copied slices (x, and y unless resident), the split y slices (hi and lo:
+    two buffers, or all nk when resident), the output tile, y's norms and the
+    barriers."""
+    x_tile = _L2_BM * _L2_BK * 4
+    y_tile = bn * _L2_BK * 4
+    return (1024 + stages * (x_tile + (0 if resident else y_tile))
+            + (nk if resident else 2) * 2 * y_tile + _L2_BM * bn * 4 + 4 * bn + 8 * (2 * stages + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _l2_stages(bn: int, resident: bool, nk: int) -> int:
+    """The deepest ring (≤ 8 stages) that fits a block's shared memory; 0 if
+    not even 2 do."""
+    fits = [s for s in range(2, _L2_MAX_STAGES + 1) if _l2_smem(bn, resident, nk, s) <= _MAX_BLOCK_SMEM]
+    return fits[-1] if fits else 0
+
+
+def _l2_plan(n: int, c: int, d: int, x_ptr: int, y_ptr: int, sms: int = 132) -> L2Plan:
+    """The host side of one ``l2_batch`` launch on ``sms`` SMs for x (n, d) at
+    address ``x_ptr`` and y (c, d) at ``y_ptr``, both row-major. TMA reads rows
+    whose stride is a multiple of 16 bytes from a 16-byte aligned base, so an
+    operand is copied into a zero-padded (·, ⌈d/4⌉·4) tensor where D % 4 ≠ 0
+    or its base is misaligned (zeros change neither products nor norms). C ≤ 64
+    takes the narrow shape (y split once per block and kept resident) when y's
+    slices fit beside a ring of at least 2 stages; everything else the wide one."""
+    d_pad = -(-d // 4) * 4
+    pad_x = d % 4 != 0 or x_ptr % 16 != 0
+    pad_y = d % 4 != 0 or y_ptr % 16 != 0
+    nk = -(-d_pad // _L2_BK)
+    m_tiles = -(-n // _L2_BM)
+    narrow_stages = _l2_stages(_L2_BN_NARROW, True, nk)
+    if c <= _L2_BN_NARROW and narrow_stages:
+        bn, stages, tiles = _L2_BN_NARROW, narrow_stages, m_tiles
+    else:
+        bn, stages = _L2_BN_WIDE, _l2_stages(_L2_BN_WIDE, False, nk)
+        tiles = m_tiles * -(-c // bn)
+    return L2Plan(bn == _L2_BN_NARROW, bn, d_pad, pad_x, pad_y, stages, tiles, min(tiles, sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _pad_cols(t: torch.Tensor, d_pad: int) -> torch.Tensor:
+    """t (rows, D) copied into a fresh zero-padded (rows, d_pad) tensor."""
+    out = torch.zeros((t.shape[0], d_pad), dtype=t.dtype, device=t.device)
+    out[:, : t.shape[1]] = t
+    count_launch("l2_batch_pad")
+    return out
+
+
 def l2_batch(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Pairwise squared L2: x (N, D), y (C, D) float32 -> (N, C) float32,
     ``max(‖x‖² + ‖y‖² − 2·x·yᵀ, 0)``."""
@@ -383,12 +461,22 @@ def l2_batch(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     _check_cuda("l2_batch", x.device, x=x, y=y)
     n, d = x.shape
     c = y.shape[0]
-    if -(-c // _L2_TILE) > _MAX_GRID_Y or n >= 2 ** 31 or c >= 2 ** 31:
-        raise ValueError(f"l2_batch: (N={n}, C={c}) exceeds the kernel's grid")
+    if n >= 2 ** 31 or c >= 2 ** 31:
+        raise ValueError(f"l2_batch: (N={n}, C={c}) exceeds the kernel's 32-bit row coordinates")
     out = torch.empty((n, c), dtype=torch.float32, device=x.device)
     if n == 0 or c == 0:
         return out
-    err = build.kernel("l2_batch")(x.data_ptr(), y.data_ptr(), out.data_ptr(), n, c, d, _stream(x))
+    if d == 0:
+        return out.zero_()
+    plan = _l2_plan(n, c, d, x.data_ptr(), y.data_ptr(), _sm_count(x.device))
+    if plan.pad_x:
+        x = _pad_cols(x, plan.d_pad)
+    if plan.pad_y:
+        y = _pad_cols(y, plan.d_pad)
+    err = build.kernel("l2_batch")(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), n, c, plan.d_pad, int(plan.narrow),
+        plan.stages, plan.grid, _stream(x),
+    )
     _raise_on("l2_batch", err)
     count_launch("l2_batch")
     return out

@@ -223,13 +223,40 @@ def flash_scan_blocked(blocks: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
 
 def l2_batch(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Pairwise squared L2: x (N, D), y (C, D) -> (N, C) float32,
-    ``max(‖x‖² + ‖y‖² − 2·x·yᵀ, 0)`` (the matrix product in full float32
-    on the card as long as TF32 is off, which the port never turns on)."""
+    ``max(‖x‖² + ‖y‖² − 2·x·yᵀ, 0)``, in full float32 (the matrix product on
+    the card too, as long as TF32 is off, which the port never turns on).
+    The kernel reaches float32 accuracy through three TF32 products
+    (:func:`l2_batch_split_tf32` emulates its arithmetic); this version is
+    what it is held against."""
     x = x.to(torch.float32)
     y = y.to(torch.float32)
     x2 = (x * x).sum(-1, keepdim=True)
     y2 = (y * y).sum(-1)
     return torch.clamp_min(x2 + y2[None, :] - 2.0 * (x @ y.T), 0.0)
+
+
+def tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on float32 bit patterns: the 23-bit mantissa
+    rounded to TF32's 10 bits, to nearest with ties away from zero (finite
+    inputs), as a float32 whose low 13 bits are zero."""
+    bits = v.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def l2_batch_split_tf32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """An emulation of ``csrc/l2_batch.cu``'s arithmetic, for the tests only:
+    no path calls it. Each operand is split into hi = rna(v) and lo =
+    rna(v − hi); the three products hi·hi + hi·lo + lo·hi (exact in float32,
+    as on the tensor cores) sum in one float32 accumulator, and the norms are
+    float32 sums of the unsplit squares."""
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    xh, yh = tf32_rna(x), tf32_rna(y)
+    xl, yl = tf32_rna(x - xh), tf32_rna(y - yh)
+    xy = torch.cat([xh, xh, xl], 1) @ torch.cat([yh, yl, yh], 1).T
+    x2 = (x * x).sum(-1, keepdim=True)
+    y2 = (y * y).sum(-1)
+    return torch.clamp_min(x2 + y2[None, :] - 2.0 * xy, 0.0)
 
 
 def sq_l2(q: torch.Tensor, db: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:

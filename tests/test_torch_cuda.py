@@ -9,9 +9,9 @@ suite's conftest imports JAX):
 
 Int32 tables must give equal sums; float32 tables allclose with rtol 1e-5
 and atol 1e-5·M·max|table| (the kernel sums in another order).
-``l2_batch`` is allclose with rtol 1e-5 and atol 1e-5·max(‖x‖² + ‖y‖²)
-against the plain version with TF32 off, and ``nearest_centroid``'s
-routes are equal except where the two nearest centroids are within that
+``l2_batch`` (3xTF32 on the tensor cores) is allclose with rtol 1e-5 and
+atol 1e-5·max(‖x‖² + ‖y‖²) against the plain version with TF32 off, and
+``nearest_centroid``'s routes are equal except where the two nearest centroids are within that
 atol of each other (a near tie, counted and bounded). ``flash_scan`` adds
 in m order like its plain version, so both table kinds must be equal;
 ``sq_l2`` is allclose with rtol 1e-5 (non-negative terms in another order).
@@ -115,21 +115,67 @@ def _l2_atol(x: torch.Tensor, y: torch.Tensor) -> float:
     return 1e-5 * float((x * x).sum(1).max() + (y * y).sum(1).max())
 
 
+def _l2_call(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """One ``l2_batch`` call, held to one kernel launch plus one pad copy
+    per operand the plan copies, and to its plain version."""
+    plan = tops._l2_plan(x.shape[0], y.shape[0], x.shape[1], x.data_ptr(), y.data_ptr())
+    before = dict(tops.launches)
+    got = tops.l2_batch(x, y)
+    torch.cuda.synchronize()
+    assert tops.launches["l2_batch"] == before["l2_batch"] + 1
+    assert tops.launches["l2_batch_pad"] == before["l2_batch_pad"] + plan.pad_x + plan.pad_y
+    want = tref.l2_batch(x, y)
+    assert torch.allclose(got, want, rtol=1e-5, atol=_l2_atol(x, y))
+    assert float(got.min()) >= 0.0
+    return got
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,c,d", [(1000, 8192, 128), (65536, 64, 128), (37, 70, 48), (5, 1, 3)])
+@pytest.mark.parametrize("n,c,d", [(1000, 8192, 128), (65536, 64, 128), (37, 70, 48), (5, 1, 3),
+                                   (1, 8191, 25), (300, 288, 100), (77, 1, 960), (1, 64, 960),
+                                   (129, 8191, 100), (2000, 64, 25)])
 def test_cuda_l2_batch(cuda_device, n, c, d):
+    """The paths' shapes, and odd ones: D ∈ {3, 25, 100, 960} (a padded
+    copy where D % 4 ≠ 0), C ∈ {1, 64, 70, 288, 8191, 8192} (the narrow
+    resident shape at C ≤ 64, ragged edges), N = 1 and N one past a tile."""
     g = torch.Generator(device=cuda_device)
     g.manual_seed(n + c + d)
     x = torch.randn((n, d), generator=g, device=cuda_device) * 3.0
     y = torch.randn((c, d), generator=g, device=cuda_device) * 3.0
     y[0] = x[0]
-    before = tops.launches["l2_batch"]
-    got = tops.l2_batch(x, y)
-    torch.cuda.synchronize()
-    assert tops.launches["l2_batch"] == before + 1
-    want = tref.l2_batch(x, y)
-    assert torch.allclose(got, want, rtol=1e-5, atol=_l2_atol(x, y))
-    assert float(got.min()) >= 0.0
+    _l2_call(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 128])
+def test_cuda_l2_batch_misaligned_view(cuda_device, d):
+    """x = a view one row (D = 3) or one float (D = 128) past its storage's
+    start, off TMA's 16-byte alignment: the plan copies it first."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(d)
+    if d == 3:
+        x = (torch.randn((301, d), generator=g, device=cuda_device) * 3.0)[1:]
+    else:
+        x = (torch.randn((300 * d + 1,), generator=g, device=cuda_device) * 3.0)[1:].view(300, d)
+    y = torch.randn((70, d), generator=g, device=cuda_device) * 3.0
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert tops._l2_plan(300, 70, d, x.data_ptr(), y.data_ptr()).pad_x
+    _l2_call(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 8192])
+def test_cuda_l2_batch_cancellation(cuda_device, c):
+    """SIFT-like rows: uint8-range values around one common vector, near
+    duplicates and an exact-zero row; ‖x‖² + ‖y‖² − 2·x·y cancels to a
+    small share of the norms."""
+    rng = np.random.default_rng(c)
+    base = rng.integers(0, 256, 128)
+    x = (base + rng.integers(-4, 5, (1000, 128))).astype(np.float32)
+    y = (base + rng.integers(-4, 5, (c, 128))).astype(np.float32)
+    y[1] = x[1] + rng.normal(size=128).astype(np.float32) * 1e-3
+    x[0] = 0.0
+    _l2_call(torch.from_numpy(x).to(cuda_device), torch.from_numpy(y).to(cuda_device))
 
 
 @pytest.mark.cuda
