@@ -22,7 +22,11 @@ non-zero and no result line is printed):
             and held at the card tests' odd shapes too. ``torch.profiler``
             gives the device time of ``flash_expand``,
             ``flash_scan_blocked``, ``flash_beam`` and ``l2_batch`` beside
-            the events'.
+            the events'. Packed mirrors of M ∈ {5, 6, 7, 8, 12, 24} (rows
+            that are not whole 8-byte words; an odd M's padding nibble set)
+            take the byte-wise layout, bit-equal to the plain versions; M = 8
+            is timed beside the M = 16 word row, and so is the M = 16 mirror
+            read byte-wise (a copy off an 8-byte boundary).
 3. build    ``AnnIndex.build(algo="hnsw", backend="flash_blocked",
             strategy="bulk")`` over the ``--n`` base rows of one
             ``vector_dataset(seed=0, n=--n + 1,000, d=128, n_clusters=64)``
@@ -41,7 +45,28 @@ non-zero and no result line is printed):
             20k-vector build from the same coder, and an 8k-row
             ``SegmentedAnnIndex`` (4 segments) built on the card, restored
             on the CPU, then grown, pruned, compacted and searched on both.
-6. sharded  the scale-out path: ``ShardedBuilder`` streams the first
+6. incremental  the paper's build, ``AnnIndex.build(strategy="incremental")``
+            with ``BuildParams()`` and the main path's coder over the first
+            ``--n-inc`` rows of the same draw: seconds (bootstrap, insert
+            batches), n_dists by phase (bootstrap, beam_upper and beam_base
+            must be non-zero), insert batches and ``flash_beam`` launches
+            (one per batch), recall@10 at ef ∈ {64, 256}, W ∈ {1, 4}
+            against ``exact_knn`` over those rows, a profiler window over 20
+            insert batches (busy share, top five kernels, host and card ms
+            per batch); beside it the bulk build of the same rows (counted
+            apart, as ``incremental_bulk``); and a
+            4,000-row incremental build with an M = 8 coder (the byte-wise
+            mirror layout) on the card and on the CPU from one coder's
+            state, bit-equal where the query tables agree.
+7. snapshot the main index saved with ``serve.snapshot.save_index`` and
+            loaded back on the card (save and load seconds, bytes): the
+            1,000 queries at ef = 64, W = 1 must return the live ids and
+            distances. Then ``ShardedBuilder(workers=2, snapshot_path=…,
+            attach=True)`` over the first 65,536 rows in 8 segments (a spawn
+            pool sharing the card) must attach segments bit-equal to the
+            inline build of the same plan; both walls and
+            ``model_parallel_wall`` of the inline walls.
+8. sharded  the scale-out path: ``ShardedBuilder`` streams the first
             ``--n`` − 2,000 rows into 64 balanced segments (inline,
             each a bulk Flash-HNSW build): assignment
             seconds (bootstrap, streaming pass), segment sizes, the sum and
@@ -49,16 +74,16 @@ non-zero and no result line is printed):
             rows whose segment differs when the same capacity-capped
             routing runs on the plain version's distances (on the card,
             and on the CPU against the card), counted.
-7. segmented_search  the held-out queries, k = 10, exact rerank, ef ∈ {64,
+9. segmented_search  the held-out queries, k = 10, exact rerank, ef ∈ {64,
             256}, W = 4, the default fan-out (one card: the loop over
             segments): QPS, recall@10 against phase 4's ground truth,
             n_scan, n_rerank, ``flash_beam`` launches (one per segment
             and search); the fan-out threads must return the same ids.
-8. maintenance  ``add`` the last 2,000 rows (routed by ``nearest_centroid``),
+10. maintenance  ``add`` the last 2,000 rows (routed by ``nearest_centroid``),
             search, ``delete`` 10,000 ids, search (ef = 256, W = 4): no
             deleted id may come back; recall
             against an exact k-NN of the live rows.
-9. retrieval  BERT4Rec next-item retrieval at the model's full config
+11. retrieval  BERT4Rec next-item retrieval at the model's full config
             (1,048,575 items, D = 64, 2 blocks, 2 heads, S = 200): rows
             [0, n) of the item table hold a normalized
             ``vector_dataset(0, d=64, n_clusters=256)``; 64 sessions (and
@@ -75,11 +100,14 @@ non-zero and no result line is printed):
             path's on 8 queries whose query tables agree.
 
 Launch counts are zeroed just before each path (the main path: phases 3–4;
-the scale-out path: phases 6–8; the retrieval path: phase 9) and read just
-after it; the script fails if a kernel of a path never launched there.
-``sq_l2`` and ``flash_expand`` are on no path: phase 2 alone runs them (and
-``flash_expand`` the loop that ``flash_beam`` is held against). Imports
-nothing of the JAX package.
+the incremental path and the bulk build beside it: phase 6, each counted
+apart, the profiler window in neither; the snapshot path: phase 7; the scale-out
+path: phases 8–10; the retrieval path: phase 11) and read just after it;
+the script fails if a kernel of a path never launched there. The main
+path's M = 16 coder must read its mirror as 8-byte words on every launch
+(``launches["mirror_*"]``). ``sq_l2`` and ``flash_expand`` are on no path:
+phase 2 alone runs them (and ``flash_expand`` the loop that ``flash_beam``
+is held against). Imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -101,6 +129,7 @@ ADD_ROWS = 2000  # rows the scale-out path adds through routed growth
 REQUESTS = 64  # the retrieval path's request batch (examples/retrieval_serving.py:49)
 GRAPH_EF = (96, 512)  # the example's ef_search (examples/retrieval_serving.py:72), and a wider beam
 DELETE_ROWS = 10000  # ids the scale-out path deletes
+N_INC = 16000  # rows of the incremental build (phase 6; PERF.md §4 gives the cut)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 CUDA_CORE_OPS_PER_S = 67e12  # float32 outside the tensor cores; int32 adds counted at it
 TF32_TENSOR_OPS_PER_S = 495e12  # dense TF32 on the tensor cores, NVIDIA data sheet
@@ -156,19 +185,20 @@ def device_events(prof) -> list:
     return [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
 
 
-def profiled(fn, reps: int = 1):
-    """Run ``fn`` ``reps`` times under ``torch.profiler`` (CPU and CUDA
-    activities) between two synchronizations: (profile, host ms of the
-    window), or (None, the error) where the profiler cannot start here. An
-    error raised by ``fn`` itself propagates."""
+def profiled(fn, reps: int = 1, cpu: bool = True):
+    """Run ``fn`` ``reps`` times under ``torch.profiler`` (CUDA activity, and
+    CPU activity unless ``cpu`` is False) between two synchronizations:
+    (profile, host ms of the window), or (None, the error) where the profiler
+    cannot start here. An error raised by ``fn`` itself propagates."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
     with contextlib.ExitStack() as stack:
         try:  # the profiler is an observation, not the path
-            prof = stack.enter_context(profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            prof = stack.enter_context(profile(activities=activities))
         except Exception as exc:
             return None, repr(exc)
         t0 = time.perf_counter()
@@ -189,11 +219,12 @@ def profiler_kernel_ms(fn, kernel: str, reps: int = 5):
     return us / reps / 1e3 if us > 0 else "no device time recorded"
 
 
-def device_window(fn) -> dict:
+def device_window(fn, cpu: bool = True) -> dict:
     """One call of ``fn`` under the profiler: the window's host ms, the
     device busy share (kernel time over the window) and the top five
-    kernels by device time."""
-    prof, wall = profiled(fn)
+    kernels by device time. ``cpu=False`` records the CUDA activity alone
+    (a window of ~10⁵ launches takes minutes to parse with the CPU ops)."""
+    prof, wall = profiled(fn, cpu=cpu)
     if prof is None:
         return {"error": wall}
     by_name: dict = {}
@@ -225,6 +256,7 @@ def check_kernels(dev, n: int) -> dict:
     g.manual_seed(0)
     m, k, r = 16, 16, 32
     out = {}
+    layouts0 = {key: ops.launches[f"mirror_{key}"] for key in ops.MIRROR_LAYOUTS}
 
     def ints(shape, hi, dtype=torch.int32):
         return torch.randint(0, hi, shape, generator=g, device=dev, dtype=dtype)
@@ -308,6 +340,9 @@ def check_kernels(dev, n: int) -> dict:
         )
     del mirror_i32
     out.update(check_flash_beam(ints, adjacency, n, m, k, r))
+    out.update(check_any_m(ints, adjacency, n, k, r))
+    # the layout each flash_expand / flash_beam launch of this phase read
+    out["mirror_layout_launches"] = {key: ops.launches[f"mirror_{key}"] - v for key, v in layouts0.items()}
 
     out.update(check_l2_batch(dev, g, q))
     # nearest_centroid: routed growth's shape, with a banned mask
@@ -447,7 +482,9 @@ def check_flash_beam(ints, adjacency, n: int, m: int, k: int, r: int) -> dict:
     (64, 4) also with the unpacked mirror; it is timed beside that loop
     (``step_loop_ms``), its plain version on the card and its bound. At
     (64, 1) the first 32 queries, one insert batch of the build
-    (``BuildParams``: batch 32, ef 64, W 1), are checked and timed too.
+    (``BuildParams``: batch 32, ef 64, W 1), are checked and timed too, and
+    so is the same search with the mirror read byte-wise (a copy 4 bytes
+    off an 8-byte boundary) beside the word layout.
 
     The bound counts the bytes the search needs: the tables, n_hops · R
     adjacency entries and packed code rows, the beam in and out, the entries
@@ -511,7 +548,7 @@ def check_flash_beam(ints, adjacency, n: int, m: int, k: int, r: int) -> dict:
                       + q * ef * 9 + q * ef * 8 + q * 16 + entries.numel() * 4)
             bnd, by = bound_ms(nbytes, hops * r * m)
             row = out[f"flash_beam_ef{ef}_w{w}"] = dict(
-                shape=[q, ef, w, r, m], n=n, max_abs_err=err, n_hops=hops, n_dists=int(got[2].sum()),
+                shape=[q, ef, w, r, m], n=n, layout=ops.mirror_layout(packed), max_abs_err=err, n_hops=hops, n_dists=int(got[2].sum()),
                 n_hops_max=int(got[3].max()), workspace_bytes=q * words * 4,
                 ms=time_ms(kernel, reps=5, inner=3),
                 device_ms=profiler_kernel_ms(kernel, "flash_beam_kernel", reps=3),
@@ -520,6 +557,21 @@ def check_flash_beam(ints, adjacency, n: int, m: int, k: int, r: int) -> dict:
                 bound_ms=bnd, bound_by=by, library_ms=None,
             )
             if (ef, w) == (64, 1):
+                # the same search with the M = 16 mirror read byte-wise: a copy
+                # 4 bytes into its storage (off 8-byte words, on 4-byte ones)
+                flat = torch.empty(packed.numel() + 4, dtype=torch.uint8, device=packed.device)
+                flat[4:] = packed.reshape(-1)
+                skewed = flat[4:].view(packed.shape)
+                before = ops.launches["mirror_bytes"]
+                got = kernel(mir=skewed)
+                if ops.launches["mirror_bytes"] != before + 1:
+                    raise AssertionError("flash_beam on a skewed M = 16 mirror did not take the byte-wise layout")
+                row["bytes_layout_same_inputs"] = dict(
+                    layout=ops.mirror_layout(skewed), max_abs_err=check(got, what="M=16, byte-wise"),
+                    ms=time_ms(lambda: kernel(mir=skewed), reps=5, inner=3),
+                    device_ms=profiler_kernel_ms(lambda: kernel(mir=skewed), "flash_beam_kernel", reps=3),
+                )
+                del flat, skewed
                 batch = tuple(t[:32].contiguous() for t in args)
                 got = kernel(batch)
                 row["insert_batch_q32"] = dict(
@@ -528,6 +580,72 @@ def check_flash_beam(ints, adjacency, n: int, m: int, k: int, r: int) -> dict:
                     device_ms=profiler_kernel_ms(lambda: kernel(batch), "flash_beam_kernel", reps=3),
                     step_loop_ms=path_ms(lambda: step_loop(batch), reps=3),
                 )
+    return out
+
+
+def check_any_m(ints, adjacency, n: int, k: int, r: int) -> dict:
+    """Phase 2's packed mirrors whose rows are not whole 8-byte words: M ∈
+    {5, 6, 7, 8, 12, 24} (⌈M/2⌉ = 3, 3, 4, 4, 6, 12 bytes) over the phase's
+    random n-vertex graph, 1,000 queries, ef = 64, W ∈ {1, 4}; an odd M's
+    padding nibble is set to 15, which a kernel must never add (M = 5 reads
+    bytes, M = 7 4-byte words). Every ``flash_beam``
+    launch must take the byte-wise layout and equal its plain version
+    ``ref.flash_beam`` bit for bit (ids, dists, n_dists, n_hops), and
+    ``flash_expand`` on the first W beam entries ``ref.flash_expand``. The
+    M = 8 launch at W = 1 is timed beside phase 2's M = 16 word-layout row
+    (``flash_beam_ef64_w1``), with its bound counted the same way."""
+    import torch
+
+    from repro_torch.core import flash as fl
+    from repro_torch.kernels import ops, ref
+
+    q, ef = QUERIES, 64
+    out = {}
+    for m in (5, 6, 7, 8, 12, 24):
+        codes = ints((n, m), k)
+        packed = fl.pack_codes(codes[adjacency.long()])
+        if m % 2:
+            packed[..., -1] |= 0xF0
+        entries = ints((q, 1), n)
+        adt = ints((q, m, k), 256)
+        d_e = fl.adc_lookup(adt, codes[entries.long()]).to(torch.float32)
+        args = (adt, adjacency, packed, *ref.initial_beam(entries, d_e, ef), entries)
+        del codes
+        rows = {}
+        for w in (1, 4):
+            max_iters = -(-(4 * ef + 8) // w)
+            before = ops.launches["mirror_bytes"]
+            got = ops.flash_beam(*args, width=w, max_iters=max_iters)
+            if ops.launches["mirror_bytes"] != before + 1:
+                raise AssertionError(f"flash_beam at M={m} did not take the byte-wise layout")
+            want = ref.flash_beam(*args, width=w, max_iters=max_iters)
+            for name, x, y in zip(("dists", "ids", "n_dists", "n_hops"), got, want):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"flash_beam (M={m}, W={w}, bytes) differs from its plain version in {name}")
+            nodes = args[4][:, :w].contiguous()
+            e_rows, e_sums = ops.flash_expand(nodes, adjacency, packed, adt)
+            p_rows, p_sums = ref.flash_expand(nodes, adjacency, packed, adt)
+            if not (torch.equal(e_rows, p_rows) and torch.equal(e_sums, p_sums)):
+                raise AssertionError(f"flash_expand (M={m}, W={w}, bytes) differs from its plain version")
+            rows[f"w{w}"] = {"n_hops": int(got[3].sum()), "n_dists": int(got[2].sum())}
+            if (m, w) == (8, 1):
+                hops = int(got[3].sum())
+                mp = packed.shape[-1]
+                nbytes = (adt.numel() * 4 + hops * r * (4 + mp)
+                          + q * ef * 9 + q * ef * 8 + q * 16 + entries.numel() * 4)
+                bnd, by = bound_ms(nbytes, hops * r * m)
+
+                def kernel(args=args, max_iters=max_iters):
+                    return ops.flash_beam(*args, width=1, max_iters=max_iters)
+                out["flash_beam_m8_bytes"] = dict(
+                    shape=[q, ef, 1, r, m], n=n, layout=ops.mirror_layout(packed), n_hops=hops,
+                    ms=time_ms(kernel, reps=5, inner=3),
+                    device_ms=profiler_kernel_ms(kernel, "flash_beam_kernel", reps=3),
+                    bound_ms=bnd, bound_by=by,
+                )
+        out[f"packed_m{m}"] = dict(bytes_per_row=int(packed.shape[-1]), layout=ops.mirror_layout(packed),
+                                   bit_equal=True, **rows)
+        del packed, args, adt
     return out
 
 
@@ -775,6 +893,203 @@ def segmented_check(data_np, q_np, workdir: str, device: str = "cuda") -> dict:
             "segmented_routes_equal": same_route, "segmented_adj0_rows_equal": adj_rows}
 
 
+def incremental_path(dev, base_np, queries, n_inc: int, t_start: float) -> dict:
+    """Phase 6: the paper's build, ``AnnIndex.build(strategy="incremental")``
+    with ``BuildParams()`` and the main path's coder over the first ``n_inc``
+    rows: seconds (bootstrap, insert batches), n_dists by phase, insert
+    batches and ``flash_beam`` launches (one per insert batch: its
+    base-layer acquisition), recall@10 at ef ∈ {64, 256}, W ∈ {1, 4} against
+    ``exact_knn`` over those rows, the share of rows the base layer reaches
+    from the entry, and a profiler window over 20 more insert
+    batches (``add`` of 640 rows to a copy: the same program) for the card's
+    busy share and the time per insert batch on the host and on the card.
+    Beside it the bulk build of the same rows, and the card against the CPU
+    path on a 4,000-row incremental build with an M = 8 coder (4 bytes per
+    packed row: the byte-wise layout). Returns the path's launches (ground
+    truth, the incremental build, its searches), the bulk build's beside it
+    (build and searches), counted apart, and ``l2_batch``'s ground-truth
+    launches. The profiler window and the card-against-CPU build are not
+    counted."""
+    import torch
+
+    from repro_torch.graph import backends as bk
+    from repro_torch.graph.engine import PHASE_NAMES, BuildParams, bfs_reachable
+    from repro_torch.graph.hnsw import build_hnsw
+    from repro_torch.index import AnnIndex, exact_knn
+    from repro_torch.kernels import ops
+    from repro_torch.utils import sync
+
+    params = BuildParams()
+    kw = dict(d_f=64, m_f=16, l_f=4, h=8)
+    data = torch.from_numpy(base_np[:n_inc]).to(dev)
+    ops.reset_launches()
+    gt = exact_knn(queries, data, k=10)[0].long()
+    gt_l2 = ops.launches["l2_batch"]
+
+    def build(strategy):
+        sync(dev)
+        t0 = time.perf_counter()
+        idx = AnnIndex.build(data, algo="hnsw", backend="flash_blocked", strategy=strategy, params=params,
+                             backend_kwargs=kw, device=dev)
+        sync(dev)
+        return idx, time.perf_counter() - t0
+
+    def recalls(idx):
+        out = []
+        for ef in (64, 256):
+            for width in (1, 4):
+                idx.search(queries[:32], k=10, ef=ef, width=width)  # warm-up
+                sync(dev)
+                t0 = time.perf_counter()
+                res = idx.search(queries, k=10, ef=ef, width=width)
+                sync(dev)
+                dt = time.perf_counter() - t0
+                if not bool(torch.isfinite(res.dists).all()) or tuple(res.ids.shape) != (QUERIES, 10):
+                    raise AssertionError(f"{idx.build_strategy} search ef={ef} width={width}: malformed result")
+                out.append({"ef": ef, "width": width, "qps": QUERIES / dt, "recall@10": recall_at(res.ids, gt)})
+        return out
+
+    before = dict(ops.launches)
+    index, wall = build("incremental")
+    st = index.last_stats
+    inc_launches = {k: v - before[k] for k, v in ops.launches.items()}
+    phases = dict(zip(PHASE_NAMES, st.phases))
+    batches = -(-n_inc // params.batch) - 1
+    for name in ("bootstrap", "beam_upper", "beam_base"):
+        if not phases[name] > 0:
+            raise AssertionError(f"the incremental build left phase {name} at 0 n_dists")
+    if inc_launches["flash_beam"] != batches or inc_launches["mirror_words"] != batches:
+        raise AssertionError(f"{batches} insert batches, yet {inc_launches['flash_beam']} flash_beam launches "
+                             f"({inc_launches['mirror_words']} on the word layout)")
+    inc_results = recalls(index)
+    sync(dev)
+    launches = dict(ops.launches)
+    inc_reach = float(bfs_reachable(index.graph.adj0.cpu().numpy(), index.graph.entry).mean())
+    # 20 more insert batches under the profiler (not counted: the path's
+    # launches were read above)
+    extra = torch.from_numpy(base_np[n_inc:n_inc + 20 * params.batch]).to(dev)
+    copies = iter([index.clone(), index.clone()])
+    t0 = time.perf_counter()
+    window = device_window(lambda: next(copies).add(extra), cpu=False)
+    window["warmup_window_and_parse_s"] = time.perf_counter() - t0
+    if "window_ms" in window:
+        window["host_ms_per_insert_batch"] = window["window_ms"] / 20
+        window["device_ms_per_insert_batch"] = window["device_ms"] / 20
+    del index, copies
+    # the bulk build of the same rows beside it, counted apart from the path
+    ops.reset_launches()
+    bulk, bulk_wall = build("bulk")
+    bulk_build_launches = dict(ops.launches)
+    bulk_results = recalls(bulk)
+    bulk_reach = float(bfs_reachable(bulk.graph.adj0.cpu().numpy(), bulk.graph.entry).mean())
+    bst = bulk.last_stats
+    del bulk
+    sync(dev)
+    bulk_launches = dict(ops.launches)
+
+    # the card against the CPU path: a 4,000-row incremental build from one
+    # M = 8 coder's state (not counted: both counts were read above)
+    d4 = data[:4000]
+    be = bk.make_backend("flash_blocked", d4, seed=0, r_for_blocked=params.r_base, device=dev,
+                         d_f=64, m_f=8, l_f=4, h=8)
+    state = be.state_dict()
+    layout = ops.mirror_layout(be.nbr_codes)
+    t0 = time.perf_counter()
+    g_gpu, s_gpu = build_hnsw(d4, be, params=params, seed=0, strategy="incremental")
+    sync(dev)
+    card_s = time.perf_counter() - t0
+    be_c = bk.FlashBlockedBackend.from_state(state, device="cpu")
+    t0 = time.perf_counter()
+    g_cpu, s_cpu = build_hnsw(d4.cpu(), be_c, params=params, seed=0, strategy="incremental")
+    cpu_s = time.perf_counter() - t0
+    mismatch = int((be.prepare_query(d4).adt_q.cpu() != be_c.prepare_query(d4.cpu()).adt_q).sum())
+    same = {"adj0": torch.equal(g_gpu.adj0.cpu(), g_cpu.adj0), "adj_up": torch.equal(g_gpu.adj_up.cpu(), g_cpu.adj_up),
+            "mirror": torch.equal(g_gpu.backend.nbr_codes.cpu(), g_cpu.backend.nbr_codes),
+            "n_dists_by_phase": list(s_gpu.phases) == list(s_cpu.phases)}
+    rows_equal = float((g_gpu.adj0.cpu() == g_cpu.adj0).all(1).double().mean())
+    if mismatch == 0 and not all(same.values()):
+        raise AssertionError(f"equal query tables, yet the card's incremental build differs from the CPU's: {same}")
+    if rows_equal < 0.99:
+        raise AssertionError(f"only {rows_equal} of adjacency rows equal the CPU build ({mismatch} level mismatches)")
+    emit({"phase": "incremental", "n": n_inc, "build_s": wall, "seconds": st.seconds,
+          "n_dists": st.n_dists, "n_dists_by_phase": phases, "n_hops": st.n_hops,
+          "insert_batches": batches, "flash_beam_launches": inc_launches["flash_beam"],
+          "s_per_insert_batch": st.seconds["insert_batches"] / max(1, batches),
+          "results": inc_results, "reachable_from_entry": inc_reach,
+          "profile_20_insert_batches": window,
+          "bulk": {"build_s": bulk_wall, "seconds": bst.seconds, "n_dists": bst.n_dists,
+                   "n_dists_by_phase": dict(zip(PHASE_NAMES, bst.phases)),
+                   "repair_unreachable": bst.repair_unreachable, "results": bulk_results,
+                   "reachable_from_entry": bulk_reach,
+                   "flash_beam_launches": bulk_build_launches["flash_beam"], "launches": bulk_launches},
+          "card_vs_cpu_m8": {"n": 4000, "layout": layout, "card_s": card_s, "cpu_s": cpu_s,
+                             "adt_level_mismatch": mismatch, "equal": same, "adj0_rows_equal": rows_equal},
+          "launches": launches, "elapsed_s": time.perf_counter() - t_start})
+    return launches, bulk_launches, gt_l2
+
+
+def snapshot_path(index, base_np, queries, spill: str, t_start: float):
+    """Phase 7: the main index through the port's snapshot files and back on
+    the card (the live index's search ids and distances must come back), then
+    the sharded builder's spawn pool: ``ShardedBuilder(workers=2,
+    snapshot_path=…, attach=True)`` over the first 65,536 rows in 8 segments
+    must attach segments bit-equal (adj0, adj_up, mirror) to the inline build
+    of the same plan. Returns the path's launches (this process's; the pool's
+    workers count their own)."""
+    import torch
+
+    from repro_torch.graph.engine import BuildParams
+    from repro_torch.graph.sharded import model_parallel_wall
+    from repro_torch.index import ShardConfig, ShardedBuilder
+    from repro_torch.kernels import ops
+    from repro_torch.serve import snapshot as snap
+    from repro_torch.utils import sync
+
+    dev = queries.device
+    ops.reset_launches()
+    path = os.path.join(spill, "snapshot", "main")
+    sync(dev)
+    t0 = time.perf_counter()
+    snap.save_index(path, index)
+    save_s = time.perf_counter() - t0
+    nbytes = snap.snapshot_bytes(path)
+    t0 = time.perf_counter()
+    loaded = snap.load_index(path, device=dev)
+    sync(dev)
+    load_s = time.perf_counter() - t0
+    live = index.search(queries, k=10, ef=64, width=1)
+    back = loaded.search(queries, k=10, ef=64, width=1)
+    if not (torch.equal(live.ids, back.ids) and torch.equal(live.dists, back.dists)):
+        raise AssertionError("the loaded snapshot searches otherwise than the live index (ef=64, W=1)")
+    del loaded
+    shutil.rmtree(path, ignore_errors=True)
+
+    rows = 65536
+    cfg = ShardConfig(n_segments=8, chunk_size=65536, balanced=True, algo="hnsw", backend="flash_blocked",
+                      strategy="bulk", params=BuildParams(), backend_kwargs=dict(d_f=64, m_f=16, l_f=4, h=8))
+    inline_builder = ShardedBuilder(cfg, workdir=os.path.join(spill, "pool_inline"), device=dev)
+    plan = inline_builder.assign(base_np[:rows])
+    inline = inline_builder.build(plan=plan)
+    sync(dev)
+    launches = dict(ops.launches)
+    pooled = ShardedBuilder(cfg, workers=2, workdir=os.path.join(spill, "pool"), device=dev).build(
+        plan=plan, snapshot_path=os.path.join(spill, "snapshot", "pool"), attach=True)
+    for s, (a, b) in enumerate(zip(pooled.index.segments, inline.index.segments)):
+        for name, x, y in (("adj0", a.graph.adj0, b.graph.adj0), ("adj_up", a.graph.adj_up, b.graph.adj_up),
+                           ("mirror", a.backend.nbr_codes, b.backend.nbr_codes)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"pool segment {s} differs from the inline build in {name}")
+    walls = [m["wall_s"] for m in inline.segments]
+    emit({"phase": "snapshot", "n": int(index.n), "save_s": save_s, "load_s": load_s, "snapshot_bytes": nbytes,
+          "search_equal_live": True, "pool_rows": plan.n, "pool_segments": plan.n_segments,
+          "inline_build_s": inline.wall_build_s, "pool_build_s": pooled.wall_build_s, "pool_workers": 2,
+          "model_parallel_wall_2": model_parallel_wall(walls, 2), "inline_segment_build_s": walls,
+          "pool_segment_build_s": [m["wall_s"] for m in pooled.segments],
+          "pool_pids": sorted({m["pid"] for m in pooled.segments}), "pool_equals_inline": True,
+          "launches": launches, "elapsed_s": time.perf_counter() - t_start})
+    return launches
+
+
 def segment_scan_recall(coll, queries, gt, c: int = 256, block: int = 50) -> float:
     """recall@10 of an exhaustive scan of every segment's own codes with the
     queries' ADTs under that segment's coder, keeping the best ``c`` per
@@ -818,7 +1133,7 @@ def timed_search(coll, queries, **kw):
 
 
 def scale_out_path(base_np, queries, gt, spill: str, t_start: float) -> tuple[dict, dict]:
-    """Phases 6–8 on the main path's rows: sharded streaming build of all
+    """Phases 8–10 on the main path's rows: sharded streaming build of all
     but the last ``ADD_ROWS`` rows, segmented fan-out search, routed growth
     of those rows and deletion, scored against the main path's ground
     truth ``gt`` and then an ``exact_knn`` of the live rows. Returns the
@@ -835,7 +1150,7 @@ def scale_out_path(base_np, queries, gt, spill: str, t_start: float) -> tuple[di
     n = base_np.shape[0]
     ops.reset_launches()
 
-    # ---- 6. sharded streaming build ----------------------------------------
+    # ---- 8. sharded streaming build ----------------------------------------
     builder = ShardedBuilder(
         ShardConfig(n_segments=SEGMENTS, chunk_size=65536, balanced=True, algo="hnsw",
                     backend="flash_blocked", strategy="bulk", params=BuildParams(),
@@ -869,7 +1184,7 @@ def scale_out_path(base_np, queries, gt, spill: str, t_start: float) -> tuple[di
     if sum(plan.seg_sizes) != n - ADD_ROWS:
         raise AssertionError("the segments do not hold every streamed row")
 
-    # ---- 7. segmented fan-out search ---------------------------------------
+    # ---- 9. segmented fan-out search ---------------------------------------
     # the default fan-out: on one card, the sequential loop over segments
     results, seq_ids = [], None
     for ef in (64, 256):
@@ -896,7 +1211,7 @@ def scale_out_path(base_np, queries, gt, spill: str, t_start: float) -> tuple[di
     if best < min(0.5, 0.5 * scan_rec):
         raise AssertionError(f"segmented recall@10 at ef=256 is {best}, below min(0.5, ½·{scan_rec})")
 
-    # ---- 8. maintenance: routed add, delete --------------------------------
+    # ---- 10. maintenance: routed add, delete -------------------------------
     new = torch.from_numpy(base_np[n - ADD_ROWS:]).to(dev)
     before = dict(ops.launches)
     sync(dev)
@@ -959,7 +1274,7 @@ def path_ms(fn, reps: int = 5) -> float:
 
 
 def retrieval_path(dev, t_start: float) -> dict:
-    """Phase 9: BERT4Rec next-item retrieval at the model's full config.
+    """Phase 11: BERT4Rec next-item retrieval at the model's full config.
     Returns the path's kernel launches."""
     import torch
 
@@ -1117,6 +1432,8 @@ def main() -> int:
     # rows are cut to 500k and the 64 segments kept (PERF.md records it).
     ap.add_argument("--n", type=int, default=500_000,
                     help="base rows of both paths (the scalability setting: 1M)")
+    ap.add_argument("--n-inc", type=int, default=N_INC,
+                    help="rows of the incremental build (phase 6)")
     args = ap.parse_args()
     n = args.n
 
@@ -1221,6 +1538,8 @@ def main() -> int:
     for name in ("flash_round", "flash_beam", "flash_scan_blocked", "l2_batch"):
         if launches[name] == 0:
             raise AssertionError(f"the main path never launched {name}")
+    if launches["mirror_bytes"] or launches["mirror_words"] != launches["flash_beam"]:
+        raise AssertionError("the main path's coder (M = 16) left the 8-byte word layout")
     # where the device time goes in one search and in the ground truth
     # (after the counts were read)
     gt_split = time_split(lambda: exact_knn(queries, data, k=10), "l2_batch_kernel")
@@ -1243,24 +1562,41 @@ def main() -> int:
             f"recall@10 at ef=256 is {best}, below half the exhaustive scan's {scan_rec}"
         )
 
-    # ---- 5. small-input checks against the CPU path -------------------------
     spill = os.path.join(root, "build", "chip_smoke_spill")
     shutil.rmtree(spill, ignore_errors=True)
-    check = small_input_checks(dev, index, queries, plain_knn)
-    check.update(segmented_check(base_np, q_np, os.path.join(spill, "check")))
-    emit({"phase": "check", **check, "elapsed_s": time.perf_counter() - t_start})
-    del index, data
-
-    # ---- 6.–8. the scale-out path ---------------------------------------------
     try:
+        # ---- 5. small-input checks against the CPU path ---------------------
+        check = small_input_checks(dev, index, queries, plain_knn)
+        check.update(segmented_check(base_np, q_np, os.path.join(spill, "check")))
+        emit({"phase": "check", **check, "elapsed_s": time.perf_counter() - t_start})
+
+        # ---- 6. the incremental build ---------------------------------------
+        inc_launches, bulk_launches, inc_gt_l2 = incremental_path(dev, base_np, queries, args.n_inc, t_start)
+        for name in ("flash_beam", "l2_batch"):
+            if inc_launches[name] == 0:
+                raise AssertionError(f"the incremental path never launched {name}")
+        for name in ("flash_beam", "flash_round"):
+            if bulk_launches[name] == 0:
+                raise AssertionError(f"the bulk build beside the incremental path never launched {name}")
+
+        # ---- 7. snapshot files and the sharded pool -------------------------
+        snap_launches = snapshot_path(index, base_np, queries, spill, t_start)
+        for name in ("flash_beam", "flash_round", "l2_batch"):
+            if snap_launches[name] == 0:
+                raise AssertionError(f"the snapshot path never launched {name}")
+        del index, data
+
+        # ---- 8.–10. the scale-out path --------------------------------------
         scale_launches, l2_uses = scale_out_path(base_np, queries, gt, spill, t_start)
     finally:
         shutil.rmtree(spill, ignore_errors=True)
-    # l2_batch's launches, split by what called it: the scale-out path's work
-    # (assignment, routed add) and the ground truths that score both paths
-    l2_uses["ground_truth"] += gt_l2
+    # l2_batch's launches, split by what called it: the assignments (the
+    # scale-out path's and the pool's plan), routed add, and the ground
+    # truths that score the main, scale-out and incremental paths
+    l2_uses["ground_truth"] += gt_l2 + inc_gt_l2
+    l2_uses["assignment"] += snap_launches["l2_batch"]
 
-    # ---- 9. the retrieval path -------------------------------------------------
+    # ---- 11. the retrieval path ------------------------------------------------
     retrieval_launches = retrieval_path(dev, t_start)
 
     rows = []
@@ -1270,7 +1606,8 @@ def main() -> int:
                       ("flash_scan", "flash_scan"), ("sq_l2", "sq_l2")):
         kr = kern[key]
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-                     "launches": launches[name] + scale_launches[name] + retrieval_launches[name],
+                     "launches": (launches[name] + inc_launches[name] + bulk_launches[name] + snap_launches[name]
+                                  + scale_launches[name] + retrieval_launches[name]),
                      "max_abs_err": kr["max_abs_err"], "ms": kr["ms"],
                      "plain_ms": kr["plain_ms"], "bound_ms": kr["bound_ms"], "bound_by": kr["bound_by"],
                      "library_ms": kr["library_ms"], "shape": kr["shape"]})
@@ -1286,9 +1623,14 @@ def main() -> int:
         if name == "flash_beam":
             rows[-1]["launches_by_use"] = {"main_build": build_launches[name],
                                            "main_search": launches[name] - build_launches[name],
+                                           "incremental": inc_launches[name],
+                                           "incremental_bulk": bulk_launches[name], "snapshot": snap_launches[name],
                                            "scale_out": scale_launches[name]}
+            rows[-1]["byte_layout_m8"] = kern["flash_beam_m8_bytes"]
+            rows[-1]["byte_layout_m16"] = kern["flash_beam_ef64_w1"]["bytes_layout_same_inputs"]
         if name == "flash_round":
-            rows[-1]["launches_by_use"] = {"main": launches[name], "scale_out": scale_launches[name],
+            rows[-1]["launches_by_use"] = {"main": launches[name], "incremental": inc_launches[name],
+                                           "incremental_bulk": bulk_launches[name], "snapshot": snap_launches[name], "scale_out": scale_launches[name],
                                            "retrieval_graph": retrieval_launches[name]}
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)

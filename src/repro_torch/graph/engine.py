@@ -1,10 +1,13 @@
 """The batched CA + NS build engine, in PyTorch (reference: repro.graph.engine).
 
-Two halves are ported for the bulk HNSW build:
+Both halves of the reference's engine are ported:
 
 * the incremental engine — ``BuildEngine.acquire`` (batched beam search),
   ``select``, ``commit_forward``, ``reverse_pass`` and ``insert_batch`` —
-  which the bulk build runs to re-insert unreachable vertices;
+  composed into the paper's build by ``bootstrap`` (the exact sequential
+  seed batch) and ``build_layered`` (then one ``insert_batch`` per batch of
+  P ids, ``strategy="incremental"``); the bulk build runs ``insert_batch``
+  to re-insert unreachable vertices;
 * the bulk engine — ``bulk_refine`` (RNN-Descent refinement rounds scored by
   ``backend.round_dists``, kernel ``flash_round``), ``bulk_commit`` /
   ``bulk_reverse`` and ``repair_reachability``.
@@ -31,6 +34,7 @@ import torch
 
 from repro_torch.graph.beam import INF, BeamResult, beam_search, stable_smallest
 from repro_torch.graph.select import Selection, prune_list, select_neighbors
+from repro_torch.utils import sync
 
 #: build phases for per-phase distance attribution (the reference's order)
 PHASE_NAMES = ("bootstrap", "beam_upper", "beam_base", "bulk", "repair")
@@ -303,6 +307,96 @@ class BuildEngine:
         _, _, backend = reverse_pass(
             adj0, adj0_d, backend, new_ids, sel_ids, sel_d, mask, params=params
         )
+        return adj0, adj0_d, adj_up, adj_up_d, backend, acct
+
+    def bootstrap(
+        self, data, adj0, adj0_d, adj_up, adj_up_d, backend, levels,
+        *, acct: CostAccount | None = None,
+    ):
+        """Exact sequential insertion of the first ``p = min(batch, n)`` rows
+        (the connected seed), in place: insert i scores the p seed rows
+        (``query_dists``, charged to the ``bootstrap`` phase) and, on every
+        layer from the top down, selects among the earlier seed rows that
+        reach the layer, commits its list and adds the reverse edges.
+
+        ``levels`` is an (n,) int32 tensor on the graph's device. A layer
+        above insert i's level selects nothing and commits nothing (its mask
+        is empty), so it is skipped on the host. Returns the graph carry
+        and the account.
+        """
+        params = self.params
+        p = min(params.batch, int(data.shape[0]))
+        dev = adj0.device
+        cand_pool = torch.arange(p, dtype=torch.int32, device=dev)
+        acct = CostAccount() if acct is None else acct
+        lv = levels[:p]
+        lv_np = lv.cpu().numpy()
+        for i in range(p):
+            qctx = backend.prepare_query(data[i:i + 1])
+            d_all = backend.query_dists(qctx, cand_pool[None])[0]  # (p,)
+            acct.add_dists(p, phase=PH_BOOTSTRAP)
+            new_ids = torch.full((1,), i, dtype=torch.int32, device=dev)
+            for l in range(params.max_layers - 1, -1, -1):
+                if lv_np[i] < l:
+                    continue
+                r_l = params.r_base if l == 0 else params.r_upper
+                elig = (cand_pool < i) & (lv >= l) & (lv[i] >= l)
+                d_s, order = torch.sort(torch.where(elig, d_all, INF), stable=True)
+                ids_s = torch.where(torch.isfinite(d_s), cand_pool[order], -1)
+                sel = self.select_one(backend, ids_s, d_s, r=r_l)
+                m1 = lv[i:i + 1] >= l
+                adj, adj_d = (adj0, adj0_d) if l == 0 else (adj_up[l - 1], adj_up_d[l - 1])
+                _, _, backend = commit_forward(
+                    adj, adj_d, backend, new_ids, sel.ids[None], sel.dists[None], m1
+                )
+                _, _, backend = reverse_pass(
+                    adj, adj_d, backend, new_ids, sel.ids[None], sel.dists[None], m1,
+                    params=params,
+                )
+        return adj0, adj0_d, adj_up, adj_up_d, backend, acct
+
+    def build_layered(self, data, backend, levels, entries, *, seconds: dict | None = None):
+        """The batch-synchronous build over all of ``data`` (the paper's
+        incremental strategy): ``bootstrap``, then ``insert_batch`` for
+        b = 1 … ⌈n/P⌉ − 1 over ids ``b·P + arange(P)`` (masked past n,
+        clamped to n − 1) from entry ``entries[b]``.
+
+        ``backend`` is written in place (callers pass a clone); ``levels``
+        an (n,) int32 tensor on the data's device; ``entries`` the host plan
+        of :func:`prefix_entries`. ``seconds`` (optional) gets the wall time
+        of the seed batch (``bootstrap``) and of the insert batches
+        (``insert_batches``), the card synchronised at each end. Returns
+        (adj0, adj0_d, adj_up, adj_up_d, backend, CostAccount).
+        """
+        params = self.params
+        n = int(data.shape[0])
+        p = params.batch
+        dev = data.device
+        # a 1-layer build allocates a 0-length upper stack
+        l_up = params.max_layers - 1
+        adj0 = torch.full((n, params.r_base), -1, dtype=torch.int32, device=dev)
+        adj0_d = torch.full((n, params.r_base), INF, device=dev)
+        adj_up = torch.full((l_up, n, params.r_upper), -1, dtype=torch.int32, device=dev)
+        adj_up_d = torch.full((l_up, n, params.r_upper), INF, device=dev)
+        seconds = {} if seconds is None else seconds
+        sync(dev)
+        t0 = time.perf_counter()
+        adj0, adj0_d, adj_up, adj_up_d, backend, acct = self.bootstrap(
+            data, adj0, adj0_d, adj_up, adj_up_d, backend, levels
+        )
+        sync(dev)
+        t1 = time.perf_counter()
+        seconds["bootstrap"] = seconds.get("bootstrap", 0.0) + t1 - t0
+        ar = torch.arange(p, dtype=torch.int32, device=dev)
+        for b in range(1, -(-n // p)):
+            ids = b * p + ar
+            mask = ids < n
+            adj0, adj0_d, adj_up, adj_up_d, backend, acct = self.insert_batch(
+                data, adj0, adj0_d, adj_up, adj_up_d, backend, levels,
+                ids.clamp_max(n - 1), int(entries[b]), mask, acct=acct,
+            )
+        sync(dev)
+        seconds["insert_batches"] = seconds.get("insert_batches", 0.0) + time.perf_counter() - t1
         return adj0, adj0_d, adj_up, adj_up_d, backend, acct
 
 

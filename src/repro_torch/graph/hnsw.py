@@ -1,4 +1,11 @@
-"""HNSW index construction (bulk strategy) and layered search, in PyTorch.
+"""HNSW index construction and layered search, in PyTorch.
+
+The incremental build (``strategy="incremental"``, the paper's Algorithm 1
+and the reference's ``build_hnsw`` default) inserts the first batch
+exactly one by one (``BuildEngine.bootstrap``), then every later batch of
+P vectors against the frozen prefix graph (``BuildEngine.build_layered``):
+upper layers by the batched Python beam loop, the base layer by one
+``flash_beam`` launch per insert batch.
 
 The bulk build bootstraps each layer's k-NN pools with whole-dataset
 refinement rounds (``engine.bulk_refine``, kernel ``flash_round``), commits
@@ -33,6 +40,7 @@ from repro_torch.graph.engine import (
     CostAccount,
     bulk_commit,
     bulk_refine,
+    prefix_entries,
     repair_reachability,
     sample_levels,
 )
@@ -64,6 +72,31 @@ def _timed(device, sink: dict, name: str):
     yield
     sync(device)
     sink[name] = sink.get(name, 0.0) + time.perf_counter() - t0
+
+
+def build_hnsw_jit(data, backend, levels, entries, *, params: BuildParams,
+                   seconds: dict | None = None) -> tuple[HNSWIndex, BuildStats]:
+    """The incremental build program (named after the reference's jitted
+    ``build_hnsw_jit``): ``BuildEngine.build_layered`` over ``data`` on a
+    copy of ``backend``'s mirror, entry = the first vertex of the highest
+    level. ``levels``/``entries`` are the host plans of
+    :func:`sample_levels` / :func:`prefix_entries`; ``seconds`` collects the
+    ``bootstrap`` and ``insert_batches`` wall times."""
+    dev = data.device
+    levels_np = np.asarray(levels).astype(np.int32)
+    lv = torch.from_numpy(levels_np).to(dev)
+    seconds = {} if seconds is None else seconds
+    adj0, adj0_d, adj_up, adj_up_d, backend, acct = BuildEngine(params).build_layered(
+        data, backend.clone(), lv, np.asarray(entries), seconds=seconds,
+    )
+    index = HNSWIndex(
+        adj0=adj0, adj0_d=adj0_d, adj_up=adj_up, adj_up_d=adj_up_d,
+        levels=lv, entry=int(np.argmax(levels_np)) if len(levels_np) else 0, backend=backend,
+    )
+    return index, BuildStats(
+        n_dists=acct.n_dists, n_hops=acct.n_hops, phases=list(acct.phases),
+        seconds=dict(seconds),
+    )
 
 
 def _build_hnsw_bulk(
@@ -133,19 +166,19 @@ def build_hnsw(
 ) -> tuple[HNSWIndex, BuildStats]:
     """Build an HNSW index over ``data`` (a tensor on the backend's device).
 
-    Only ``strategy="bulk"`` is ported; ``"incremental"`` raises.
+    ``strategy``: ``"bulk"`` (refinement rounds, then repair) or
+    ``"incremental"`` (the paper's batch-synchronous insertion,
+    :func:`build_hnsw_jit`). ``seconds`` collects the phase times.
     """
     n = data.shape[0]
     if levels is None:
         levels = sample_levels(seed, n, r_upper=params.r_upper, max_layers=params.max_layers)
-    if strategy == "incremental":
-        raise NotImplementedError(
-            "the incremental build strategy (bootstrap/build_layered) is not "
-            "ported yet: ROADMAP queue 1, item 5a"
-        )
-    if strategy != "bulk":
+    if strategy == "bulk":
+        return _build_hnsw_bulk(data, backend, levels, params=params, seed=seed, seconds=seconds)
+    if strategy != "incremental":
         raise ValueError(f"unknown build strategy {strategy!r}")
-    return _build_hnsw_bulk(data, backend, levels, params=params, seed=seed, seconds=seconds)
+    entries = prefix_entries(np.asarray(levels), params.batch)
+    return build_hnsw_jit(data, backend, levels, entries, params=params, seconds=seconds)
 
 
 class SearchResult(NamedTuple):

@@ -9,8 +9,10 @@
     meta, arrays = index.export_state()               # the reference's format
     index = AnnIndex.restore(meta, arrays)            # either package's state
 
-This port covers ``algo="hnsw"`` built with ``strategy="bulk"``, search,
-maintenance, ``clone`` and ``export_state``/``restore``. The state uses
+This port covers ``algo="hnsw"`` built with ``strategy="bulk"`` or
+``"incremental"``, ``from_graph``, search, maintenance, ``clone`` and
+``export_state``/``restore`` (``repro_torch.serve.snapshot`` puts the
+state on disk). The state uses
 exactly the reference's ``(meta, arrays)`` layout, so an index built by the
 JAX package restores here and searches identically, and the reverse.
 
@@ -147,6 +149,41 @@ class AnnIndex:
             seconds=seconds,
         )
         return cls(params=params, graph=graph, data=data, backend_kind=kind,
+                   seed=seed, stats=stats, strategy=strategy)
+
+    @classmethod
+    def from_graph(
+        cls,
+        graph: HNSWIndex,
+        data,
+        *,
+        algo: str = "hnsw",
+        params: BuildParams | None = None,
+        backend_kind: str = "flash",
+        seed: int = 0,
+        stats: BuildStats | None = None,
+        strategy: str = "incremental",
+        device: str | torch.device = "cuda",
+    ) -> "AnnIndex":
+        """Wrap an already-built ``HNSWIndex`` (e.g. from ``build_hnsw``) in
+        the facade on ``device``, without refitting or rebuilding; ``data``
+        is the raw vectors in id order (the rerank corpus). A graph on
+        another device is moved there (its backend through its state)."""
+        dev = resolve_device(device)
+        if algo != "hnsw":
+            raise NotImplementedError(
+                f"algo {algo!r} is not ported yet: vamana/nsg are ROADMAP queue 1, item 6"
+            )
+        if graph.adj0.device.type != dev.type:
+            be = graph.backend
+            graph = graph._replace(
+                adj0=graph.adj0.to(dev), adj0_d=graph.adj0_d.to(dev),
+                adj_up=graph.adj_up.to(dev), adj_up_d=graph.adj_up_d.to(dev),
+                levels=graph.levels.to(dev),
+                backend=type(be).from_state(be.state_dict(), device=dev),
+            )
+        return cls(params=BuildParams() if params is None else params, graph=graph,
+                   data=_tensor(data, dev, torch.float32), backend_kind=backend_kind,
                    seed=seed, stats=stats, strategy=strategy)
 
     # ---- introspection --------------------------------------------------

@@ -11,14 +11,20 @@ The scale-out layer on top of :class:`repro_torch.graph.segmented.SegmentedAnnIn
                block are on the card at a time; per-segment copies exist
                only as append-only spill files (the same raw float32 and
                int64 bytes, file names and ``plan.json`` as the reference's)
-  build        every segment builds inline, one after another, on the
-               ordinary bulk ``AnnIndex.build`` path — the same per-segment
-               program (and seed ``seed + s``) as ``SegmentedAnnIndex.build``
+  build        every segment builds on the ordinary ``AnnIndex.build``
+               path — the same per-segment program (and seed ``seed + s``)
+               as ``SegmentedAnnIndex.build`` — inline, one after another,
+               or with ``workers > 1`` in a ``spawn`` process pool whose
+               workers share the card
+  publish      with ``snapshot_path=`` (always, in the pool) every segment
+               is saved with ``serve.snapshot.save_index`` into
+               ``<path>.tmp/seg_NNN``, the coordinator writes the segmented
+               manifest and publishes the whole in one rename; ``attach``
+               loads it back. Disk is the worker → coordinator transport.
 
-Left for later, each raising ``NotImplementedError``: the process pool
-(``workers > 1``) and ``snapshot_path=`` publish/attach need snapshot file
-I/O (ROADMAP queue 1, item 5c); the mesh mode becomes multi-GPU
-``torch.distributed`` work (item 7). None of them falls back to inline.
+The mesh mode becomes multi-GPU ``torch.distributed`` work (ROADMAP queue
+1, item 7) and raises ``NotImplementedError``; nothing falls back to
+inline.
 
 Global id contract: the i-th vector of the stream is global id i; routing
 permutes vectors into segments and the coordinator's ``locate`` table maps
@@ -29,10 +35,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing as mp
 import os
+import shutil
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -49,14 +57,6 @@ _GID_FMT = "seg_{:03d}.gid"
 _PLAN_JSON = "plan.json"
 _CENTROIDS_NPY = "centroids.npy"
 
-_POOL_TODO = (
-    "the process-pool build (workers > 1) needs snapshot file I/O, which is "
-    "not ported yet: ROADMAP queue 1, item 5c"
-)
-_SNAPSHOT_TODO = (
-    "snapshot_path= publish and attach need snapshot file I/O, which is not "
-    "ported yet: ROADMAP queue 1, item 5c"
-)
 _MESH_TODO = (
     "the mesh build (stacked shard_map programs) becomes multi-GPU "
     "torch.distributed work, not ported yet: ROADMAP queue 1, item 7"
@@ -340,13 +340,15 @@ def stream_assign(
 
 
 def build_segment_task(task: dict) -> dict:
-    """Build one segment from its spill files on ``task["device"]``.
+    """Build one segment from its spill files on ``task["device"]``; runs
+    inline or in a pool worker (module level: the spawn pool pickles it).
 
-    Returns the reference's metrics dict (``seg``, ``n_vectors``, ``pid``,
-    ``wall_s`` — load and build, the card synchronised —, ``n_dists``,
-    ``phases``, ``max_rss_mb``, ``snapshot``) plus the build's phase
-    ``seconds`` and ``repair_unreachable`` counts, and the built index under
-    ``"index"`` when ``keep_index`` is set (inline mode)."""
+    With ``task["snapshot_dir"]`` the index leaves as a snapshot saved
+    there. Returns the reference's metrics dict (``seg``, ``n_vectors``,
+    ``pid``, ``wall_s`` — load, build and save, the card synchronised —,
+    ``n_dists``, ``phases``, ``max_rss_mb``, ``snapshot``) plus the build's
+    phase ``seconds`` and ``repair_unreachable`` counts, and the built index
+    under ``"index"`` when ``keep_index`` is set (inline mode only)."""
     import resource
 
     dev = resolve_device(task["device"])
@@ -365,6 +367,11 @@ def build_segment_task(task: dict) -> dict:
         device=dev,
         **task["algo_kwargs"],
     )
+    snapshot_dir = task.get("snapshot_dir")
+    if snapshot_dir is not None:
+        from repro_torch.serve.snapshot import save_index  # lazy: avoids a cycle
+
+        save_index(snapshot_dir, index)
     sync(dev)
     stats = index.last_stats
     metrics = {
@@ -375,7 +382,7 @@ def build_segment_task(task: dict) -> dict:
         "n_dists": 0.0 if stats is None else float(stats.n_dists),
         "phases": None if stats is None else stats.phase_dict(),
         "max_rss_mb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0,
-        "snapshot": None,
+        "snapshot": snapshot_dir,
         "seconds": None if stats is None else stats.seconds,
         "repair_unreachable": None if stats is None else stats.repair_unreachable,
     }
@@ -413,6 +420,18 @@ def fanout_map(fn, items, *, parallel: bool = True) -> list:
     return list(_fanout_executor().map(fn, items))
 
 
+def model_parallel_wall(walls, n_workers: int) -> float:
+    """Greedy longest-processing-time schedule: the critical-path wall an
+    ``n_workers``-wide pool needs for segments with the given measured
+    per-segment build times (a model, for hosts that cannot run the pool
+    at that width)."""
+    loads = [0.0] * max(1, int(n_workers))
+    for w in sorted((float(w) for w in walls), reverse=True):
+        i = loads.index(min(loads))
+        loads[i] += w
+    return max(loads)
+
+
 # ---------------------------------------------------------------------------
 # The builder
 # ---------------------------------------------------------------------------
@@ -439,9 +458,9 @@ class ShardConfig:
 
 @dataclasses.dataclass
 class ShardedBuildResult:
-    index: object  # SegmentedAnnIndex
+    index: object  # SegmentedAnnIndex | None (None: published, not attached)
     plan: ShardPlan
-    mode: str  # "inline" (the only mode ported)
+    mode: str  # "pool" | "inline"
     snapshot_path: str | None
     segments: list  # per-segment metrics dicts
     wall_assign_s: float
@@ -452,10 +471,9 @@ class ShardedBuildResult:
 class ShardedBuilder:
     """Streaming assignment + per-segment construction on ``device``.
 
-    The port runs the inline mode: the same assignment and the same
-    per-segment program as the reference's pool, in this process, one
-    segment after another. ``workers > 1``, ``mesh=`` and
-    ``snapshot_path=`` raise ``NotImplementedError``."""
+    ``workers > 1`` runs a ``spawn`` process pool of workers that all build
+    on ``device`` (the kernels are built first, in this process); otherwise
+    every segment builds inline. ``mesh=`` raises ``NotImplementedError``."""
 
     def __init__(self, config: ShardConfig, *, workers: int | None = None,
                  mesh=None, workdir: str | None = None,
@@ -504,36 +522,37 @@ class ShardedBuilder:
 
     def build(self, source=None, *, plan: ShardPlan | None = None,
               snapshot_path: str | None = None, attach: bool = True) -> ShardedBuildResult:
-        """Assign (unless a ``plan`` is given) and build every segment
-        inline. ``snapshot_path`` needs snapshot file I/O and raises;
-        ``attach`` only applies to it (as in the reference)."""
+        """Assign (unless a ``plan`` is given) and build every segment.
+
+        ``snapshot_path``: publish the build as a segmented snapshot there
+        (the pool always publishes, by default under ``workdir/index``);
+        ``attach=False`` leaves it on disk and returns ``index=None``."""
         if (source is None) == (plan is None):
             raise ValueError("pass exactly one of source= or plan=")
-        self._check_mode()
-        if snapshot_path is not None:
-            raise NotImplementedError(_SNAPSHOT_TODO)
+        if self.mesh is not None:
+            raise NotImplementedError(_MESH_TODO)
+        pool = self.workers is not None and self.workers > 1
         t0 = time.perf_counter()
         if plan is None:
             plan = self.assign(source)
         wall_assign = time.perf_counter() - t0
+        if pool and snapshot_path is None:
+            snapshot_path = os.path.join(self.workdir, "index")
         t1 = time.perf_counter()
-        index, metrics = self._build_local(plan)
+        index, metrics = self._build_local(plan, snapshot_path, pool=pool, attach=attach)
         wall_build = time.perf_counter() - t1
         return ShardedBuildResult(
-            index=index, plan=plan, mode="inline", snapshot_path=None,
+            index=index, plan=plan, mode="pool" if pool else "inline",
+            snapshot_path=None if snapshot_path is None else os.path.abspath(snapshot_path),
             segments=metrics, wall_assign_s=wall_assign, wall_build_s=wall_build,
-            n_workers=1,
+            n_workers=int(self.workers) if pool else 1,
         )
 
     # ---- internals ------------------------------------------------------
 
-    def _check_mode(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(_MESH_TODO)
-        if self.workers is not None and self.workers > 1:
-            raise NotImplementedError(_POOL_TODO)
+    def _task(self, plan: ShardPlan, s: int, root: str | None, keep_index: bool) -> dict:
+        from repro_torch.serve.snapshot import segment_dir  # lazy: avoids a cycle
 
-    def _task(self, plan: ShardPlan, s: int) -> dict:
         cfg = self.config
         return {
             "seg": s,
@@ -548,16 +567,48 @@ class ShardedBuilder:
             "seed": cfg.seed + s,  # SegmentedAnnIndex.build's seed + s
             "backend_kwargs": cfg.backend_kwargs,
             "algo_kwargs": dict(cfg.algo_kwargs or {}),
-            "device": self.device,
-            "keep_index": True,
+            "device": str(self.device),
+            "snapshot_dir": None if root is None else segment_dir(root, s),
+            "keep_index": keep_index,
         }
 
-    def _build_local(self, plan: ShardPlan):
-        from repro_torch.graph.segmented import SegmentedAnnIndex
+    def _build_local(self, plan: ShardPlan, snapshot_path: str | None, *, pool: bool, attach: bool):
+        from repro_torch.serve import snapshot as snap  # lazy: avoids a cycle
 
-        metrics = [build_segment_task(self._task(plan, s)) for s in range(plan.n_segments)]
-        segments = [m.pop("index") for m in metrics]
-        index = SegmentedAnnIndex.from_parts(
-            segments, plan.centroids, plan.global_of(), device=self.device
+        root_tmp = None
+        if snapshot_path is not None:
+            snapshot_path = os.path.abspath(snapshot_path)
+            root_tmp = snapshot_path + ".tmp"
+            if os.path.lexists(root_tmp):
+                shutil.rmtree(root_tmp)
+            os.makedirs(root_tmp)
+        keep = root_tmp is None  # no snapshot: the indexes come back in memory
+        tasks = [self._task(plan, s, root_tmp, keep_index=keep and not pool)
+                 for s in range(plan.n_segments)]
+        if pool:
+            if self.device.type == "cuda":
+                # workers load the libraries; concurrent first builds would
+                # each run nvcc, so build them once here
+                from repro_torch.kernels import build
+
+                build.build_all()
+            # a worker's exception (a CUDA error included) re-raises here
+            with ProcessPoolExecutor(max_workers=int(self.workers),
+                                     mp_context=mp.get_context("spawn")) as ex:
+                metrics = list(ex.map(build_segment_task, tasks))
+        else:
+            metrics = [build_segment_task(t) for t in tasks]
+        if root_tmp is None:
+            from repro_torch.graph.segmented import SegmentedAnnIndex
+
+            segments = [m.pop("index") for m in metrics]
+            index = SegmentedAnnIndex.from_parts(
+                segments, plan.centroids, plan.global_of(), device=self.device
+            )
+            return index, metrics
+        snap.write_segmented_manifest(
+            root_tmp, centroids=plan.centroids, global_of=plan.global_of(), locate=plan.locate(),
         )
+        snap.publish_snapshot(root_tmp, snapshot_path)
+        index = snap.load_index(snapshot_path, device=self.device) if attach else None
         return index, metrics

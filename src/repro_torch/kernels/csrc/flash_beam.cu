@@ -67,6 +67,7 @@
 
 #include "flash_common.cuh"
 
+using repro_flash::kPackedBytes;
 using repro_flash::kPackedWords;
 using repro_flash::kUnpacked;
 
@@ -278,7 +279,8 @@ int launch(const void* adt, const void* adj, const void* mirror,
 
 // C entry point (bound with ctypes). adt (Q, M, K) int32; adjacency (n, R)
 // int32; mirror (n, R, Mp) uint8 read as 8-byte words (layout 1, Mp % 8 ==
-// 0) or (n, R, M) int32 (layout 0); the sorted initial beam (Q, ef) as f32
+// 0, 8-byte aligned) or byte-wise (layout 2, any M), or (n, R, M) int32
+// (layout 0); the sorted initial beam (Q, ef) as f32
 // d, int32 ids, bool expanded; entries (Q, E) int32; visited a (Q, ⌈n/32⌉)
 // int32 workspace; smem the block's dynamic shared-memory bytes. The
 // wrapper checks the shapes, W·R <= 1024 and smem against the block limit.
@@ -296,6 +298,11 @@ extern "C" int repro_flash_beam(const void* adt, const void* adj,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (layout == kPackedWords)
     return launch<kPackedWords>(adt, adj, mirror, beam_d, beam_ids, beam_exp,
+                                entries, visited, out_d, out_ids, n_dists,
+                                n_hops, Q, n, R, Mp, M, K, E, ef, W, max_iters,
+                                smem, s);
+  if (layout == kPackedBytes)
+    return launch<kPackedBytes>(adt, adj, mirror, beam_d, beam_ids, beam_exp,
                                 entries, visited, out_d, out_ids, n_dists,
                                 n_hops, Q, n, R, Mp, M, K, E, ef, W, max_iters,
                                 smem, s);

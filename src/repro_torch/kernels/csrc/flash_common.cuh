@@ -45,14 +45,18 @@ __device__ __forceinline__ T row_sum(const T* table, const int32_t* __restrict__
 }
 
 // How a mirror slot's M codes are stored: (n, R, M) int32, or packed
-// (n, R, ⌈M/2⌉) uint8 read as 8-byte words (low nibble = even subspace).
-enum MirrorLayout { kUnpacked = 0, kPackedWords = 1 };
+// (n, R, ⌈M/2⌉) uint8 (low nibble = even subspace) read as 8-byte words
+// (Mp % 8 == 0, an 8-byte aligned start) or, for any M, byte-wise.
+enum MirrorLayout { kUnpacked = 0, kPackedWords = 1, kPackedBytes = 2 };
 
 // Σ_m table[m, code_m] over the codes of one mirror slot (neighbor j of
-// frontier vertex v is slot v·R + j), added in m order. A packed slot is
-// Mp bytes read as Mp / 8 8-byte loads (Mp % 8 == 0, 8-byte aligned rows)
-// and unpacked in registers; an unpacked slot is M int32 loads. flash_expand
-// and flash_beam both score their slots here, so the two cannot drift.
+// frontier vertex v is slot v·R + j), added in m order. kPackedWords reads
+// a slot's Mp bytes as Mp / 8 8-byte loads and unpacks them in registers;
+// kPackedBytes assumes no alignment: a slot is Mp bytes at slot·Mp, read as
+// 4-byte words where Mp % 4 == 0 and the slot's start is 4-byte aligned,
+// else byte by byte (when M is odd the last byte's high nibble is padding
+// and is never added); an unpacked slot is M int32 loads. flash_expand and
+// flash_beam both score their slots here, so the two cannot drift.
 template <typename T, int LAYOUT>
 __device__ __forceinline__ T score_slot(const T* table,
                                         const void* __restrict__ mirror,
@@ -71,6 +75,24 @@ __device__ __forceinline__ T score_slot(const T* table,
       for (int t = 0; t < 8; ++t) {
         const int m = 16 * wd + 8 + t;
         if (m < M) acc += table[m * K + ((v.y >> (4 * t)) & 0xF)];
+      }
+    }
+  } else if (LAYOUT == kPackedBytes) {
+    const uint8_t* p = static_cast<const uint8_t*>(mirror) + slot * Mp;
+    if ((Mp & 3) == 0 && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
+      const uint32_t* pw = reinterpret_cast<const uint32_t*>(p);
+      for (int wd = 0; wd < Mp / 4; ++wd) {
+        const uint32_t v = __ldg(pw + wd);
+        for (int t = 0; t < 8; ++t) {
+          const int m = 8 * wd + t;
+          if (m < M) acc += table[m * K + ((v >> (4 * t)) & 0xF)];
+        }
+      }
+    } else {
+      for (int b = 0; b < Mp; ++b) {
+        const uint32_t v = __ldg(p + b);
+        acc += table[(2 * b) * K + (v & 0xF)];
+        if (2 * b + 1 < M) acc += table[(2 * b + 1) * K + (v >> 4)];
       }
     }
   } else {

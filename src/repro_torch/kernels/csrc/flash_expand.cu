@@ -21,11 +21,13 @@
 // lookups (repro_flash::score_slot, shared with flash_beam). The TPU
 // kernel gathered through scalar-prefetched BlockSpecs and contracted a
 // one-hot on the MXU; here each thread gathers its own row
-// and a lookup is one shared-memory load. A packed mirror is read only as
-// 8-byte words, so it needs M % 16 == 0 (the wrapper raises otherwise).
+// and a lookup is one shared-memory load. A packed mirror whose rows are
+// whole 8-byte words (⌈M/2⌉ % 8 == 0) is read as such; any other M is read
+// byte-wise (4-byte words where they align), the same sums in the same order.
 
 #include "flash_common.cuh"
 
+using repro_flash::kPackedBytes;
 using repro_flash::kPackedWords;
 using repro_flash::kUnpacked;
 
@@ -81,12 +83,16 @@ static int dispatch(int layout, const void* nodes, const void* adj,
   if (layout == kPackedWords)
     return launch<T, kPackedWords>(nodes, adj, mirror, adt, rows, sums, Q, W,
                                    R, Mp, M, K, s);
+  if (layout == kPackedBytes)
+    return launch<T, kPackedBytes>(nodes, adj, mirror, adt, rows, sums, Q, W,
+                                   R, Mp, M, K, s);
   return launch<T, kUnpacked>(nodes, adj, mirror, adt, rows, sums, Q, W, R, Mp,
                               M, K, s);
 }
 
 // C entry point (bound with ctypes). layout: 0 = (n, R, M) int32 mirror,
-// 1 = packed uint8 read as 8-byte words (Mp % 8 == 0, 8-byte aligned).
+// 1 = packed uint8 read as 8-byte words (Mp % 8 == 0, 8-byte aligned),
+// 2 = packed uint8 read byte-wise (any M, any alignment).
 // Returns cudaGetLastError() after launch.
 extern "C" int repro_flash_expand(const void* nodes, const void* adj,
                                   const void* mirror, const void* adt,

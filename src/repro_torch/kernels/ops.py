@@ -18,7 +18,9 @@ Kernel notes (each source in ``csrc/`` carries the full note):
 * ``flash_expand`` replaces ``repro/kernels/flash_expand.py::flash_expand_pallas``.
   Bound by the random adjacency and packed code rows (384 B per frontier
   vertex at R = 32, M = 16). One block per (query, vertex group), one
-  8-byte code load per neighbor, nibbles unpacked in registers.
+  8-byte code load per neighbor, nibbles unpacked in registers; packed
+  rows that are not whole 8-byte words (⌈M/2⌉ % 8 ≠ 0) are read byte-wise
+  (:func:`mirror_layout`; ``launches["mirror_*"]`` count each layout).
 * ``flash_beam`` replaces the same TPU kernel together with the beam loop
   that launched it once per iteration: one launch runs the whole base-layer
   beam search of Q queries. Bound by latency (dependent loads and
@@ -66,7 +68,14 @@ launches: dict[str, int] = {
     "l2_batch_pad": 0,
     "flash_scan": 0,
     "sq_l2": 0,
+    # the mirror layout each flash_expand / flash_beam launch read
+    "mirror_words": 0,
+    "mirror_bytes": 0,
+    "mirror_unpacked": 0,
 }
+
+#: csrc/flash_common.cuh::MirrorLayout codes, by name
+MIRROR_LAYOUTS = {"unpacked": 0, "words": 1, "bytes": 2}
 
 _LAUNCH_LOCK = threading.Lock()
 
@@ -123,6 +132,15 @@ def _check_table_size(name: str, m: int, k: int) -> None:
 def _raise_on(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def mirror_layout(mirror: torch.Tensor) -> str:
+    """How the kernels read a mirror (``MIRROR_LAYOUTS``): an int32 one
+    unpacked; a packed one as 8-byte words where its rows are whole words
+    (⌈M/2⌉ % 8 == 0) from an 8-byte aligned start, else byte-wise."""
+    if mirror.dtype != torch.uint8:
+        return "unpacked"
+    return "words" if mirror.shape[-1] % 8 == 0 and mirror.data_ptr() % 8 == 0 else "bytes"
 
 
 def flash_scan(codes: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
@@ -208,11 +226,6 @@ def flash_expand(
         raise TypeError("flash_expand: nodes and adjacency must be int32")
     if not packed and mirror.dtype != torch.int32:
         raise TypeError(f"flash_expand: mirror must be uint8 or int32, got {mirror.dtype}")
-    if packed and (mp % 8 != 0 or mirror.data_ptr() % 8 != 0):
-        raise ValueError(
-            f"flash_expand: a packed mirror is read as 8-byte words: needs M % 16 == 0 "
-            f"and an 8-byte aligned start (M={m})"
-        )
     is_float = _table_kind("flash_expand", adt)
     _check_cuda("flash_expand", nodes.device, nodes=nodes, adjacency=adjacency, mirror=mirror, adt=adt)
     _check_table_size("flash_expand", m, k)
@@ -220,13 +233,14 @@ def flash_expand(
     sums = torch.empty((q, w, r), dtype=adt.dtype, device=nodes.device)
     if q == 0 or w == 0 or r == 0:
         return rows, sums
+    layout = mirror_layout(mirror)
     err = build.kernel("flash_expand")(
         nodes.data_ptr(), adjacency.data_ptr(), mirror.data_ptr(), adt.data_ptr(),
-        rows.data_ptr(), sums.data_ptr(), q, w, r, mp, m, k, int(packed), is_float,
+        rows.data_ptr(), sums.data_ptr(), q, w, r, mp, m, k, MIRROR_LAYOUTS[layout], is_float,
         _stream(nodes),
     )
     _raise_on("flash_expand", err)
-    count_launch("flash_expand")
+    count_launch("flash_expand", f"mirror_{layout}")
     return rows, sums
 
 
@@ -284,11 +298,6 @@ def flash_beam(
         raise TypeError("flash_beam: the beam's d must be float32 and its flags bool")
     if not packed and mirror.dtype != torch.int32:
         raise TypeError(f"flash_beam: mirror must be uint8 or int32, got {mirror.dtype}")
-    if packed and (mp % 8 != 0 or mirror.data_ptr() % 8 != 0):
-        raise ValueError(
-            f"flash_beam: a packed mirror is read as 8-byte words: needs M % 16 == 0 "
-            f"and an 8-byte aligned start (M={m})"
-        )
     if not 1 <= width * r <= 1024:
         raise ValueError(f"flash_beam: W·R = {width}·{r} must lie in [1, 1024] (one thread per slot)")
     if not 1 <= width <= ef:
@@ -309,14 +318,15 @@ def flash_beam(
     if q == 0:
         return out_d, out_i, nd, nh
     visited = torch.empty((q, (n + 31) // 32), dtype=torch.int32, device=dev)
+    layout = mirror_layout(mirror)
     err = build.kernel("flash_beam")(
         adt.data_ptr(), adjacency.data_ptr(), mirror.data_ptr(), beam_d.data_ptr(),
         beam_ids.data_ptr(), beam_exp.data_ptr(), entry_ids.data_ptr(), visited.data_ptr(),
         out_d.data_ptr(), out_i.data_ptr(), nd.data_ptr(), nh.data_ptr(),
-        q, n, r, mp, m, k, e, ef, width, max_iters, smem, int(packed), _stream(adjacency),
+        q, n, r, mp, m, k, e, ef, width, max_iters, smem, MIRROR_LAYOUTS[layout], _stream(adjacency),
     )
     _raise_on("flash_beam", err)
-    count_launch("flash_beam")
+    count_launch("flash_beam", f"mirror_{layout}")
     return out_d, out_i, nd, nh
 
 

@@ -16,7 +16,11 @@ atol of each other (a near tie, counted and bounded). ``flash_scan`` adds
 in m order like its plain version, so both table kinds must be equal;
 ``sq_l2`` is allclose with rtol 1e-5 (non-negative terms in another order).
 ``flash_beam`` (int32 tables only) must equal the loop of ``flash_expand``
-launches it replaces bit for bit: ids, dists and both counts.
+launches it replaces bit for bit: ids, dists and both counts; on a packed
+mirror of any M (the byte-wise layout) both equal their plain versions.
+The incremental build on the card equals the CPU path's from one coder's
+state where the two devices' query tables agree, and a snapshot of a card
+index loads back on the card searching identically.
 """
 
 from __future__ import annotations
@@ -100,10 +104,10 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         tops.flash_round(codes, adts)
     with pytest.raises(ValueError):
         tops.flash_round(codes.to(torch.int32)[:, ::2], adts)
-    # a packed mirror with M = 8 (4 bytes per row) is not read as 8-byte words
+    # a packed mirror whose last dim is not ⌈M/2⌉
     nodes = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
     adj = torch.zeros((4, 32), dtype=torch.int32, device=cuda_device)
-    mirror = torch.zeros((4, 32, 4), dtype=torch.uint8, device=cuda_device)
+    mirror = torch.zeros((4, 32, 5), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError):
         tops.flash_expand(nodes, adj, mirror, torch.zeros((2, 8, K), dtype=torch.int32, device=cuda_device))
     before = tops.launches["flash_scan_batch"]
@@ -260,11 +264,10 @@ def test_cuda_flash_scan_and_sq_l2_raise_on_what_they_do_not_take(cuda_device):
                    torch.ones(8, dtype=torch.float64, device=cuda_device))
 
 
-def _beam_inputs(rng, dev, *, n, r, q, ef, levels, packed, e=2):
+def _beam_inputs(rng, dev, *, n, r, q, ef, levels, packed, e=2, m=16):
     """A random n-vertex graph with −1 holes and repeated vertices, its
     mirror, (Q, M, K) int32 tables of ``levels`` levels and the sorted
     initial beam from E entries (one of them −1)."""
-    m = 16
     codes = torch.from_numpy(rng.integers(0, K, (n, m)).astype(np.int32))
     adj = torch.from_numpy(rng.integers(0, n, (n, r)).astype(np.int32))
     adj[torch.from_numpy(rng.random((n, r)) < 0.1)] = -1
@@ -321,3 +324,99 @@ def test_cuda_flash_beam_raises_on_what_it_does_not_take(cuda_device):
     big = _beam_inputs(rng, cuda_device, n=500, r=32, q=2, ef=20000, levels=256, packed=True)
     with pytest.raises(ValueError, match="shared memory"):
         tops.flash_beam(*big, width=1, max_iters=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,skew", [(5, 0), (6, 0), (7, 0), (8, 0), (12, 0), (24, 0), (16, 1), (16, 4)])
+def test_cuda_packed_mirror_of_any_m(cuda_device, m, skew):
+    """flash_beam and flash_expand on a packed mirror whose rows are not
+    whole 8-byte words (⌈M/2⌉ % 8 ≠ 0), or one that starts off an 8-byte
+    boundary (``skew`` bytes into its storage), take the byte-wise layout
+    and equal their plain versions bit for bit: ids, sums and both counts.
+    An odd M's padding nibble is set to 15, so a kernel that added it would
+    read past the query's table (M = 5 through the byte loop, M = 7 and the
+    4-byte skew through the 4-byte words)."""
+    rng = np.random.default_rng(m + skew)
+    adt, adj, mirror, beam_d, beam_ids, beam_exp, entries = _beam_inputs(
+        rng, cuda_device, n=5000, r=32, q=200, ef=64, levels=256, packed=True, m=m)
+    if m % 2:
+        mirror[..., -1] |= 0xF0
+    if skew:
+        flat = torch.zeros(mirror.numel() + skew, dtype=torch.uint8, device=cuda_device)
+        flat[skew:] = mirror.reshape(-1)
+        mirror = flat[skew:].view(mirror.shape)
+    assert tops.mirror_layout(mirror) == "bytes"
+    before = dict(tops.launches)
+    for w in (1, 4):
+        args = (adt, adj, mirror, beam_d, beam_ids, beam_exp, entries)
+        got = tops.flash_beam(*args, width=w, max_iters=64)
+        want = tref.flash_beam(*(t.cpu() for t in args), width=w, max_iters=64)
+        for g, x, name in zip(got, want, ("dists", "ids", "n_dists", "n_hops")):
+            assert torch.equal(g.cpu(), x), (w, name)
+        assert int(got[3].sum()) > 0
+        nodes = beam_ids[:, :w].contiguous()
+        rows, sums = tops.flash_expand(nodes, adj, mirror, adt)
+        rows_p, sums_p = tref.flash_expand(nodes.cpu(), adj.cpu(), mirror.cpu(), adt.cpu())
+        assert torch.equal(rows.cpu(), rows_p) and torch.equal(sums.cpu(), sums_p)
+    assert tops.launches["mirror_bytes"] == before["mirror_bytes"] + 4
+    assert tops.launches["mirror_words"] == before["mirror_words"]
+
+
+def _clustered(n: int, d: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(16, d)) * 2.0
+    return (centers[rng.integers(0, 16, n)] + rng.normal(size=(n, d))).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_f", [8, 16])
+def test_cuda_incremental_build_equals_the_cpu_build(cuda_device, m_f):
+    """One coder's state, the incremental build on both devices: with equal
+    query tables the graphs, the mirror and the per-phase counts are equal
+    (m_f = 8 reads the mirror byte-wise, m_f = 16 as 8-byte words)."""
+    from repro_torch.graph import backends as tbk
+    from repro_torch.graph.engine import BuildParams
+    from repro_torch.graph.hnsw import build_hnsw
+
+    x = torch.from_numpy(_clustered(2000, 48, seed=m_f))
+    be = tbk.make_backend("flash_blocked", x, seed=0, r_for_blocked=16, device="cpu",
+                          d_f=32, m_f=m_f, l_f=4, h=8, kmeans_iters=8)
+    card = tbk.FlashBlockedBackend.from_state(be.state_dict(), device=cuda_device)
+    params = BuildParams(r_upper=8, r_base=16, ef=32, batch=16, max_layers=3)
+    layout = "bytes" if m_f == 8 else "words"
+    before = tops.launches[f"mirror_{layout}"]
+    g_gpu, s_gpu = build_hnsw(x.to(cuda_device), card, params=params, seed=0, strategy="incremental")
+    torch.cuda.synchronize()
+    assert tops.launches[f"mirror_{layout}"] - before == -(-2000 // 16) - 1  # one per insert batch
+    g_cpu, s_cpu = build_hnsw(x, be, params=params, seed=0, strategy="incremental")
+    mismatch = int((card.prepare_query(x.to(cuda_device)).adt_q.cpu() != be.prepare_query(x).adt_q).sum())
+    assert mismatch == 0, f"{mismatch} query-table levels differ between the devices"
+    for a, b in ((g_gpu.adj0, g_cpu.adj0), (g_gpu.adj_up, g_cpu.adj_up),
+                 (g_gpu.backend.nbr_codes, g_cpu.backend.nbr_codes)):
+        assert torch.equal(a.cpu(), b)
+    assert list(s_gpu.phases) == list(s_cpu.phases) and g_gpu.entry == g_cpu.entry
+
+
+@pytest.mark.cuda
+def test_cuda_snapshot_round_trip(cuda_device, tmp_path):
+    """A card index saved and loaded back on the card searches identically;
+    loaded on the CPU it holds the same graph and mirror."""
+    from repro_torch.graph.engine import BuildParams
+    from repro_torch.index import AnnIndex
+    from repro_torch.serve import snapshot as snap
+
+    x = _clustered(3064, 48, seed=1)
+    data, queries = x[:3000], torch.from_numpy(x[3000:]).to(cuda_device)
+    idx = AnnIndex.build(data, params=BuildParams(r_upper=8, r_base=16, ef=32, batch=16, max_layers=2),
+                         backend_kwargs=dict(d_f=32, m_f=8, l_f=4, h=8, kmeans_iters=8),
+                         strategy="incremental", device=cuda_device)
+    idx.delete([3, 7])
+    path = snap.save_index(str(tmp_path / "snap"), idx)
+    back = snap.load_index(path)
+    assert back.device.type == "cuda" and back.build_strategy == "incremental"
+    for width in (1, 4):
+        a, b = idx.search(queries, k=10, ef=64, width=width), back.search(queries, k=10, ef=64, width=width)
+        assert torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+    cpu = snap.load_index(path, device="cpu")
+    assert torch.equal(cpu.graph.adj0, idx.graph.adj0.cpu())
+    assert torch.equal(cpu.backend.nbr_codes, idx.backend.nbr_codes.cpu())

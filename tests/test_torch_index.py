@@ -99,5 +99,6 @@ def test_entry_points_default_to_the_card(setup):
         AnnIndex.build(data[:100], backend_kwargs=FLASH_KW)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AnnIndex.build(data[:100], algo="vamana", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AnnIndex.build(data[:100], strategy="incremental", backend_kwargs=FLASH_KW, device="cpu")
+    # the incremental strategy builds (it raised until it was ported)
+    inc = AnnIndex.build(data[:100], strategy="incremental", backend_kwargs=FLASH_KW, device="cpu")
+    assert inc.build_strategy == "incremental" and inc.last_stats.phases[0] > 0
