@@ -6,8 +6,8 @@ under the same path and name. It imports ``torch`` and ``numpy`` only.
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; without a
 card it raises unless the caller asks for ``device="cpu"``. On a CUDA tensor
-the three Flash kernels (``kernels/csrc/*.cu``) run; on a CPU tensor their
-plain PyTorch versions (``kernels/ref.py``) do.
+the kernels (``kernels/csrc/*.cu``) run; on a CPU tensor their plain
+PyTorch versions (``kernels/ref.py``) do.
 
     from repro_torch.index import AnnIndex
 

@@ -89,10 +89,6 @@ class FlashQueryCtx(NamedTuple):
     adt_f: torch.Tensor
     codes: torch.Tensor
 
-    def rows(self, sel) -> "FlashQueryCtx":
-        """The contexts of rows ``sel`` (a slice or an index tensor)."""
-        return FlashQueryCtx(*(t[sel] for t in self))
-
 
 def _split_subspaces(z: torch.Tensor, m: int, ds: int) -> torch.Tensor:
     """(n, d) -> (m, n, ds), zero-padding d up to m*ds."""
@@ -249,3 +245,43 @@ def pack_codes(codes: torch.Tensor) -> torch.Tensor:
 def unpack_codes(packed: torch.Tensor, m: int) -> torch.Tensor:
     """Inverse of :func:`pack_codes`: (…, ⌈m/2⌉) uint8 -> (…, m) int32."""
     return qz.unpack4(packed)[..., :m]
+
+
+def decode_codes(coder: FlashCoder, codes: torch.Tensor) -> torch.Tensor:
+    """Codewords (…, M) -> their centroids lifted back to the original
+    space (…, D): the concatenated subspace centroids, cut to d_f, rotated
+    back and shifted by the mean."""
+    m_idx = torch.arange(coder.m_f, device=codes.device)
+    gathered = coder.codebooks[m_idx, codes.long()]  # (…, M, ds)
+    z_hat = gathered.reshape(*gathered.shape[:-2], -1)[..., : coder.d_f]
+    return z_hat @ coder.rot.T + coder.mean
+
+
+def reconstruct(coder: FlashCoder, x: torch.Tensor) -> torch.Tensor:
+    """decode(encode(x)) in the original space: the "derived vector" of
+    §3.1 in Theorem 1's error term E_u = u − reconstruct(u)."""
+    return decode_codes(coder, encode(coder, x))
+
+
+def estimate_distance(coder: FlashCoder, q_sum: torch.Tensor) -> torch.Tensor:
+    """Map an ADC level sum back to an approximate squared distance
+    (diagnostics and rerank thresholds; comparisons never need it)."""
+    levels = qz._levels(coder.table_quant)
+    return q_sum.to(torch.float32) / levels * coder.delta + float(coder.m_f) * coder.dist_min
+
+
+def to_neighbor_blocks(codes: torch.Tensor, b: int) -> torch.Tensor:
+    """One vertex's neighbor codewords (R, M) -> (R // b, M, b): within a
+    block of ``b`` neighbors the codes are grouped by subspace, so one
+    contiguous load fetches one subspace's b codes (Figure 5). R must be a
+    multiple of b (pad with code 0 / id −1 upstream)."""
+    r, m = codes.shape
+    if r % b:
+        raise ValueError(f"R={r} not a multiple of block size b={b}")
+    return codes.reshape(r // b, b, m).permute(0, 2, 1)
+
+
+def from_neighbor_blocks(blocks: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`to_neighbor_blocks`: (nb, M, b) -> (nb·b, M)."""
+    nb, m, b = blocks.shape
+    return blocks.permute(0, 2, 1).reshape(nb * b, m)

@@ -2,7 +2,8 @@
 
 The decomposition is a float64 covariance ``eigh`` on the host, exactly as
 the reference does it, so the PCA half of a Flash coder fitted on the same
-rows is bit-equal between the two packages.
+rows is bit-equal between the two packages. The model's arrays stay numpy;
+``transform`` and its inverse move them to the input's device.
 """
 
 from __future__ import annotations
@@ -58,3 +59,38 @@ def fit_pca(x, *, max_sample: int = 65536) -> PCAModel:
         components=eigvec.astype(np.float32),
         eigenvalues=eigval.astype(np.float32),
     )
+
+
+def variance_dim(model: PCAModel, alpha: float) -> int:
+    """Smallest d with cumulative explained variance >= alpha (paper f(d))."""
+    ev = np.asarray(model.eigenvalues, dtype=np.float64)
+    total = ev.sum()
+    if total <= 0:
+        return model.dim
+    frac = np.cumsum(ev) / total
+    return int(np.searchsorted(frac, alpha) + 1)
+
+
+def _on(arr, like: torch.Tensor) -> torch.Tensor:
+    """A model array (numpy or tensor) as a tensor on ``like``'s device."""
+    t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.asarray(arr))
+    return t.to(like.device)
+
+
+def transform(model: PCAModel, x: torch.Tensor, d: int | None = None) -> torch.Tensor:
+    """Project ``x`` (…, D) onto the first ``d`` principal components."""
+    d = model.dim if d is None else d
+    return (x - _on(model.mean, x)) @ _on(model.components, x)[:, :d]
+
+
+def inverse_transform(model: PCAModel, z: torch.Tensor) -> torch.Tensor:
+    """Lift ``z`` (…, d) back to the original space (the tail zero-padded):
+    the reconstruction of Theorem 1's error vector E_u = u − inverse(transform(u))."""
+    d = z.shape[-1]
+    return z @ _on(model.components, z)[:, :d].T + _on(model.mean, z)
+
+
+def reconstruction_error(model: PCAModel, x: torch.Tensor, d: int) -> torch.Tensor:
+    """Per-row L2 reconstruction error when keeping ``d`` components."""
+    xr = inverse_transform(model, transform(model, x, d))
+    return torch.linalg.vector_norm(x - xr, dim=-1)

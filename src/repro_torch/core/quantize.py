@@ -1,4 +1,10 @@
-"""Distance-table quantization (paper §3.3.3, Eq. 9) and 4-bit code packing.
+"""Scalar quantization (paper §3.2.2), distance-table quantization (§3.3.3,
+Eq. 9) and 4-bit code packing.
+
+The HNSW-SQ baseline maps each dimension to an ``L_SQ``-bit level,
+``round((x − lo) / scale · (2^bits − 1))`` with half-to-even rounding (the
+reference's ``jnp.round``; ``torch.round`` rounds the same way), and
+compares codes in the quantized domain with per-dimension scales.
 
 Every partial distance in the asymmetric (ADT) and symmetric (SDT) tables is
 mapped to an ``H``-bit level with one shared ``(dist_min, Δ)``:
@@ -15,6 +21,56 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+
+class SQParams(NamedTuple):
+    """Per-dimension scalar-quantization parameters.
+
+    lo:    (D,) per-dim minimum.
+    scale: (D,) per-dim (hi − lo), clamped away from zero.
+    bits:  () int32 — bits per dimension (a 0-d tensor: snapshots carry it).
+    """
+
+    lo: torch.Tensor
+    scale: torch.Tensor
+    bits: torch.Tensor
+
+
+def sq_fit(x: torch.Tensor, *, bits: int = 8) -> SQParams:
+    """Fit per-dimension ranges on (a sample of) the dataset (n, D)."""
+    lo = x.amin(0)
+    hi = x.amax(0)
+    scale = torch.clamp_min(hi - lo, 1e-12)
+    return SQParams(lo=lo, scale=scale, bits=torch.tensor(bits, dtype=torch.int32, device=x.device))
+
+
+def sq_levels(bits):
+    """2^bits − 1 for an int, or for a 0-d int tensor (as a tensor)."""
+    if isinstance(bits, int):
+        return (1 << bits) - 1
+    return 2 ** bits.to(torch.int64) - 1
+
+
+def _sq_levels_f32(params: SQParams) -> torch.Tensor:
+    return sq_levels(params.bits).to(torch.float32)
+
+
+def sq_encode(params: SQParams, x: torch.Tensor) -> torch.Tensor:
+    """Encode float vectors (…, D) to int32 codes in [0, 2^bits)."""
+    levels = _sq_levels_f32(params)
+    q = torch.round((x - params.lo) / params.scale * levels)
+    return torch.minimum(torch.clamp_min(q, 0), levels).to(torch.int32)
+
+
+def sq_decode(params: SQParams, codes: torch.Tensor) -> torch.Tensor:
+    """Decode integer codes back to (lossy) floats."""
+    return params.lo + codes.to(torch.float32) / _sq_levels_f32(params) * params.scale
+
+
+def sq_dim_scales(params: SQParams) -> torch.Tensor:
+    """Per-dimension squared scales s2_d = (scale_d / levels)², so that
+    δ²(x, y) ≈ Σ_d s2_d · (q_d − c_d)² on the codes (no decode)."""
+    return torch.square(params.scale / _sq_levels_f32(params))
 
 
 class TableQuant(NamedTuple):

@@ -1,9 +1,13 @@
-"""The port's graph layer: Flash backends, the batched beam, selection, the
-build engine, HNSW, the two-stage rerank, the ``AnnIndex`` facade with
+"""The port's graph layer: the six distance backends, the batched beam,
+selection, the build engine, HNSW and the flat graphs (Vamana, NSG), the
+two-stage rerank, the ``AnnIndex`` facade with its algorithm registry and
 maintenance, exact k-NN, and the scale-out layer (``SegmentedAnnIndex``
 with the sharded streaming builder)."""
 
-from repro_torch.graph.index import AnnIndex, SearchResult, SearchSpec  # noqa: F401
+from repro_torch.graph.backends import KINDS, make_backend  # noqa: F401
+from repro_torch.graph.index import AnnIndex, SearchResult, SearchSpec, algos, register_algo  # noqa: F401
+from repro_torch.graph.nsg import build_nsg  # noqa: F401
+from repro_torch.graph.vamana import FlatIndex, build_vamana  # noqa: F401
 from repro_torch.graph.knn import average_distance_ratio, exact_knn, recall_at_k  # noqa: F401
 
 # The scale-out layer composes the facade, so it imports after it.

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.graph.backends import ctx_rows
 from repro_torch.graph.beam import INF, BeamResult, beam_search, stable_smallest
 from repro_torch.graph.select import Selection, prune_list, select_neighbors
 from repro_torch.utils import sync
@@ -473,7 +474,7 @@ def _bulk_pass(backend, qctxs, members, cand, pool_p, *, dedup: bool):
     for s in range(0, m, _BULK_CHUNK):
         e = min(m, s + _BULK_CHUNK)
         c = cand[s:e]
-        d, bad = _bulk_score(backend, qctxs.rows(slice(s, e)), members[s:e], c)
+        d, bad = _bulk_score(backend, ctx_rows(qctxs, slice(s, e)), members[s:e], c)
         n_scored += int((~bad).sum())
         if dedup:
             idkey = torch.where(bad, _ID_SENTINEL, c)
@@ -547,7 +548,7 @@ def bulk_refine(
     aug_ids = torch.empty_like(aug)
     for s in range(0, m, _BULK_CHUNK):
         e = min(m, s + _BULK_CHUNK)
-        d, bad = _bulk_score(backend, qctxs.rows(slice(s, e)), members[s:e], aug[s:e])
+        d, bad = _bulk_score(backend, ctx_rows(qctxs, slice(s, e)), members[s:e], aug[s:e])
         aug_d[s:e] = d
         aug_ids[s:e] = torch.where(bad, -1, aug[s:e])
         n_scored += int((~bad).sum())

@@ -6,9 +6,9 @@ candidates at full precision and takes the true top-k. :class:`SearchSpec`
 freezes the read-side configuration into one hashable value.
 
 ``merge_rerank_topk`` is the coordinator's second stage over several
-sources' candidates (``SegmentedAnnIndex.search``). The port has the
-"exact" and "none" stages; "reconstruct" (decoding codes instead of keeping
-raw vectors) is still to port.
+sources' candidates (``SegmentedAnnIndex.search``). The stages: "exact"
+(raw vectors), "none" (scan distances pass through) and "reconstruct"
+(the backend's coder decodes the candidates: no raw table kept).
 """
 
 from __future__ import annotations
@@ -97,9 +97,26 @@ class ExactReranker:
         return self.source.raw_dists(q, ids)
 
 
+class ReconstructReranker:
+    """Approximate rerank on coder-reconstructed vectors: the candidates'
+    codes decoded through ``backend.recon_vectors`` (PQ's and Flash's come
+    padded to M·ds and are cut to the query's D), scored by squared L2
+    against the raw query. No raw table is kept; the result is bounded by
+    the coder's reconstruction error."""
+
+    def __init__(self, backend):
+        self.backend = backend
+
+    def dists(self, q: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        v = self.backend.recon_vectors(ids)
+        d = v[..., : q.shape[-1]] - q[:, None, :]
+        return (d * d).sum(-1)
+
+
 def make_reranker(mode: str, backend=None, raw_vectors=None):
     """The reranker for ``mode`` (None for "none"). "exact" prefers the
-    backend's retained raw vectors, else ``raw_vectors``."""
+    backend's retained raw vectors, else ``raw_vectors``; "reconstruct"
+    decodes through ``backend``."""
     if mode == "none":
         return None
     if mode == "exact":
@@ -112,9 +129,9 @@ def make_reranker(mode: str, backend=None, raw_vectors=None):
             "with keep_raw=True or pass raw_vectors"
         )
     if mode == "reconstruct":
-        raise NotImplementedError(
-            "reconstruct rerank is not ported yet (ROADMAP queue 1, item 5d)"
-        )
+        if backend is None:
+            raise ValueError("reconstruct rerank needs the index backend")
+        return ReconstructReranker(backend)
     raise ValueError(f"unknown rerank mode {mode!r}; valid: {RERANK_MODES}")
 
 

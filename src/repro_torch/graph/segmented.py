@@ -69,17 +69,19 @@ class SegmentedAnnIndex:
         backend_kwargs: dict | None = None,
         strategy: str = "bulk",
         device: str | torch.device = "cuda",
+        **algo_kwargs,
     ) -> "SegmentedAnnIndex":
         """data_segs: (S, n_s, D) array or an iterable of per-segment
         (n_s, D) arrays, built one at a time (segment s with seed
-        ``seed + s``); the routing table is the segments' means."""
+        ``seed + s``; ``algo_kwargs`` to every ``AnnIndex.build``); the
+        routing table is the segments' means."""
         dev = resolve_device(device)
         segments, global_of, means = [], [], []
         next_gid = 0
         for s, seg_data in enumerate(data_segs):
             seg = AnnIndex.build(
                 seg_data, algo=algo, backend=backend, params=params, seed=seed + s,
-                backend_kwargs=backend_kwargs, strategy=strategy, device=dev,
+                backend_kwargs=backend_kwargs, strategy=strategy, device=dev, **algo_kwargs,
             )
             segments.append(seg)
             means.append(seg.data.mean(0).cpu().numpy())

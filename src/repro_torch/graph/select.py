@@ -5,8 +5,9 @@ Candidate v is kept iff no already-kept u has α·δ(u, v) < δ(v, x). Per row
 the scan is sequential in candidate order; here every step runs across all
 rows of a block at once, over the block's (B, C, C) pair matrix
 (``backend.pair_matrix``: SDT sums for Flash, no vector fetches). Blocks
-bound the pair matrix's memory; rows are independent, so the block size
-does not change any result.
+bound the pair matrix's memory (``backend.pair_matrix_bytes`` says what one
+row of it holds); rows are independent, so the block size does not change
+any result.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import torch
 
 from repro_torch.graph.beam import INF, stable_smallest
 
-#: float elements of the pair matrix plus its one-hot operands per block
-_SELECT_BUDGET = 1 << 27
+#: bytes of pair matrix (and what the backend holds to make it) per block
+_SELECT_BYTES = 1 << 29
 
 
 class Selection(NamedTuple):
@@ -68,9 +69,7 @@ def select_neighbors(
     if b == 0:
         z = torch.zeros((0, r), dtype=torch.int32, device=cand_ids.device)
         return Selection(z, z.to(torch.float32), z[:, 0])
-    k = getattr(backend, "coder", None)
-    mk = k.m_f * k.k if k is not None else 1
-    block = max(1, _SELECT_BUDGET // max(1, c * (c + 2 * mk)))
+    block = max(1, _SELECT_BYTES // max(1, backend.pair_matrix_bytes(c)))
     if b <= block:
         return _select_block(backend, cand_ids, cand_dists, r, alpha)
     parts = [

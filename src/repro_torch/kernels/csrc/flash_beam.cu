@@ -27,7 +27,10 @@
 //
 // Design:
 // * One block per query, W·R threads rounded up to whole warps (32 at W = 1,
-//   128 at W = 4). The block runs the loop to the end with the query's own
+//   128 at W = 4), at most 1,024: above that a thread takes slots tid,
+//   tid + 1024, … (W·R = 1,536 at W = 16, R = 96), and every phase below
+//   that a thread ran for its one slot runs round by round, a barrier per
+//   round. The block runs the loop to the end with the query's own
 //   stopping test and no host involvement; at Q = 1,000 every block is
 //   resident at once.
 // * All state in shared memory for the whole loop: the (M, K) table, the
@@ -53,8 +56,9 @@
 //   survives iff its vertex was unvisited before the iteration and no slot
 //   of an earlier row holds it (the first such row's slot survives and
 //   marks it). So every slot reads its bitmap word once, all in parallel
-//   through L2 (__ldcg: the marks are L2 atomics), checks the earlier rows'
-//   ids in shared memory, and the survivors mark after a barrier.
+//   through L2 (__ldcg: the marks are L2 atomics), keeping d = inf if the
+//   bit was set; after a barrier it checks the earlier rows' ids in shared
+//   memory, and the survivors mark.
 // * Merge by rank, equal to a stable sort of cat[beam, new] cut at ef: a new
 //   entry's rank is its stable rank s among the new ones (by (d, slot)) plus
 //   #{beam <= d} (binary search); a beam entry at position p goes to
@@ -126,9 +130,8 @@ __global__ void __launch_bounds__(1024)
   }
   __syncthreads();
 
-  const bool has_slot = tid < WR;
-  const int row = tid / R;  // this thread's frontier row and slot
-  const int j = tid - row * R;
+  const int nthr = blockDim.x;
+  const int rounds = (WR + nthr - 1) / nthr;  // slots per thread, at most
   long long nd = 0, nh = 0;
   for (int it = 0; it < max_iters; ++it) {
     // ---- selection and the stopping test (warp 0) ----
@@ -160,63 +163,78 @@ __global__ void __launch_bounds__(1024)
     if (!ctrl[1]) break;
     nh += ctrl[0];
 
-    // ---- expansion: score this thread's slot ----
-    int nbr = -1;
-    float dv = CUDART_INF_F;
-    if (has_slot) {
+    // ---- expansion: score this thread's slots, read their bitmap bits ----
+    // A slot's new d is inf unless its vertex was unvisited before the
+    // iteration (d is an int32 sum otherwise, so finite).
+    for (int s = tid; s < WR; s += nthr) {
+      const int row = s / R;
       const int node = nodes[row];
+      int nbr = -1;
+      float dv = CUDART_INF_F;
       if (node >= 0) {
-        const int64_t slot = (int64_t)node * R + j;
+        const int64_t slot = (int64_t)node * R + (s - row * R);
         nbr = __ldg(adj + slot);
         dv = (float)repro_flash::score_slot<int32_t, LAYOUT>(table, mirror,
                                                              slot, Mp, M, K);
       }
+      const bool fresh =
+          nbr >= 0 && (__ldcg(vis + (nbr >> 5)) & (1u << (nbr & 31))) == 0u;
+      cid[s] = nbr;
+      cd[s] = fresh ? dv : CUDART_INF_F;
     }
-
-    // ---- visited: unvisited before this iteration, and in no earlier row ----
-    const uint32_t bit = 1u << (nbr & 31);
-    bool ok = nbr >= 0 && (__ldcg(vis + (nbr >> 5)) & bit) == 0u;
-    if (has_slot) cid[tid] = nbr;
     __syncthreads();  // every bitmap read before any mark; cid whole
-    if (ok) {
-      for (int k = 0; k < row * R; ++k) {
-        if (cid[k] == nbr) {
-          ok = false;
-          break;
+
+    // ---- visited: and in no earlier row; the survivors mark ----
+    int n_new = 0;
+    for (int rr = 0; rr < rounds; ++rr) {
+      const int s = rr * nthr + tid;
+      bool ok = s < WR && cd[s] < CUDART_INF_F;
+      if (ok) {
+        const int nbr = cid[s];
+        const int first = (s / R) * R;
+        for (int k = 0; k < first; ++k) {
+          if (cid[k] == nbr) {
+            ok = false;
+            break;
+          }
         }
+        if (ok) atomicOr(vis + (nbr >> 5), 1u << (nbr & 31));
+        else cd[s] = CUDART_INF_F;
       }
-      if (ok) atomicOr(vis + (nbr >> 5), bit);
+      n_new += __syncthreads_count(ok);
     }
-    if (!ok) dv = CUDART_INF_F;
-    if (has_slot) cd[tid] = dv;
-    const int n_new = __syncthreads_count(ok);
     nd += n_new;
     if (n_new == 0) continue;  // nothing to merge: the beam stays
 
     // ---- merge: ranks of the new entries, then of the beam entries ----
-    int rank = ef;
-    if (ok) {
-      int lo = 0, hi = ef;  // #{beam <= dv}
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (d[mid] <= dv) lo = mid + 1; else hi = mid;
-      }
-      if (lo < ef) {
-        int s = 0;  // stable rank among the new entries
-        for (int k = 0; k < WR; ++k) {
-          const float o = cd[k];
-          s += (o < dv) || (o == dv && k < tid);
+    int kept = 0;
+    for (int rr = 0; rr < rounds; ++rr) {
+      const int s = rr * nthr + tid;
+      int rank = ef;
+      if (s < WR && cd[s] < CUDART_INF_F) {
+        const float dv = cd[s];
+        int lo = 0, hi = ef;  // #{beam <= dv}
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (d[mid] <= dv) lo = mid + 1; else hi = mid;
         }
-        rank = s + lo;
-        if (rank < ef) {
-          sd[s] = dv;
-          d_nx[rank] = dv;
-          ids_nx[rank] = nbr;
-          ex_nx[rank] = 0;
+        if (lo < ef) {
+          int sr = 0;  // stable rank among the new entries
+          for (int k = 0; k < WR; ++k) {
+            const float o = cd[k];
+            sr += (o < dv) || (o == dv && k < s);
+          }
+          rank = sr + lo;
+          if (rank < ef) {
+            sd[sr] = dv;
+            d_nx[rank] = dv;
+            ids_nx[rank] = cid[s];
+            ex_nx[rank] = 0;
+          }
         }
       }
+      kept += __syncthreads_count(rank < ef);
     }
-    const int kept = __syncthreads_count(rank < ef);
     if (kept == 0) continue;
     for (int p = tid; p < ef; p += blockDim.x) {
       const float a = d[p];
@@ -255,13 +273,10 @@ int launch(const void* adt, const void* adj, const void* mirror,
            void* n_dists, void* n_hops, int Q, int n, int R, int Mp, int M,
            int K, int E, int ef, int W, int max_iters, int smem,
            cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_beam_kernel<LAYOUT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int threads = ((W * R + 31) / 32) * 32;
+  const int err = repro_flash::allow_smem(flash_beam_kernel<LAYOUT>, smem);
+  if (err) return err;
+  int threads = ((W * R + 31) / 32) * 32;
+  if (threads > 1024) threads = 1024;
   const int64_t words = ((int64_t)n + 31) / 32;
   flash_beam_kernel<LAYOUT><<<Q, threads, smem, stream>>>(
       static_cast<const int32_t*>(adt), static_cast<const int32_t*>(adj),
@@ -283,7 +298,7 @@ int launch(const void* adt, const void* adj, const void* mirror,
 // (layout 0); the sorted initial beam (Q, ef) as f32
 // d, int32 ids, bool expanded; entries (Q, E) int32; visited a (Q, ⌈n/32⌉)
 // int32 workspace; smem the block's dynamic shared-memory bytes. The
-// wrapper checks the shapes, W·R <= 1024 and smem against the block limit.
+// wrapper checks the shapes and smem against the block limit.
 // Writes the final (Q, ef) d and ids and (Q,) int64 n_dists / n_hops of the
 // loop. Returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_beam(const void* adt, const void* adj,

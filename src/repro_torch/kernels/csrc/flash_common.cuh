@@ -102,6 +102,16 @@ __device__ __forceinline__ T score_slot(const T* table,
   return acc;
 }
 
+// Lets `kernel` take `smem` bytes of dynamic shared memory: above the 48 KB
+// every kernel may take, Hopper needs the opt-in (up to 227 KB per block;
+// the wrappers check the bytes against that first). Returns the CUDA error.
+template <typename Kernel>
+inline int allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 // Threads per block for `slots` outputs: a whole number of warps, at most 256.
 inline int threads_for(int slots) {
   if (slots >= 256) return 256;

@@ -15,7 +15,8 @@
 // random places in device memory; per query the 1 KiB table once.
 //
 // Design: one block per (query, group of frontier vertices). The block
-// stages adt[q] in shared memory; thread j of a frontier vertex reads
+// stages adt[q] in shared memory (above 48 KB through allow_smem's
+// opt-in); thread j of a frontier vertex reads
 // adjacency[node, j] and its code row — Mp = 8 bytes at M = 16, one 8-byte
 // load — unpacks the nibbles in registers and sums M shared-memory
 // lookups (repro_flash::score_slot, shared with flash_beam). The TPU
@@ -68,6 +69,8 @@ static int launch(const void* nodes, const void* adj, const void* mirror,
   const int n_wblk = (W + w_per_block - 1) / w_per_block;
   const int threads = repro_flash::threads_for(w_per_block * R);
   const size_t smem = (size_t)M * K * sizeof(T);
+  const int err = repro_flash::allow_smem(flash_expand_kernel<T, LAYOUT>, smem);
+  if (err) return err;
   flash_expand_kernel<T, LAYOUT><<<Q * n_wblk, threads, smem, stream>>>(
       static_cast<const int32_t*>(nodes), static_cast<const int32_t*>(adj),
       mirror, static_cast<const T*>(adt), static_cast<int32_t*>(rows),

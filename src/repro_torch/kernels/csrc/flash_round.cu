@@ -11,7 +11,8 @@
 // 8.2 GB of gathered codes, so device-memory bandwidth is the roof; the
 // M lookups per output hit shared memory.
 //
-// Design: one block per row b. The block stages adts[b] in shared memory,
+// Design: one block per row b. The block stages adts[b] in shared memory
+// (up to 227 KB: a table above 48 KB takes the opt-in of allow_smem),
 // then its threads stride over the C candidates; each thread loads its
 // candidate's M codes with 16-byte vector loads (when M % 4 == 0 and the
 // pointer is aligned), does M shared-memory lookups and writes one sum.
@@ -41,10 +42,10 @@ static int launch(const void* codes, const void* adts, void* out, int B, int C,
   const int32_t* c = static_cast<const int32_t*>(codes);
   const T* a = static_cast<const T*>(adts);
   T* o = static_cast<T*>(out);
-  if (vec4)
-    flash_round_kernel<T, true><<<B, threads, smem, stream>>>(c, a, o, C, M, K);
-  else
-    flash_round_kernel<T, false><<<B, threads, smem, stream>>>(c, a, o, C, M, K);
+  auto kernel = vec4 ? flash_round_kernel<T, true> : flash_round_kernel<T, false>;
+  const int err = repro_flash::allow_smem(kernel, smem);
+  if (err) return err;
+  kernel<<<B, threads, smem, stream>>>(c, a, o, C, M, K);
   return (int)cudaGetLastError();
 }
 

@@ -15,7 +15,7 @@
 // that reads the codes once for all Q tables ((Q, M, K) tables) is later
 // work.
 //
-// Design: the (M, K) table (1 KiB at M = K = 16, at most 48 KiB) is staged in
+// Design: the (M, K) table (1 KiB at M = K = 16, at most 227 KB) is staged in
 // shared memory once per block. Each thread scores one row per step of a
 // grid-stride loop: it reads the row's M codes as 16-byte vector loads when
 // M % 4 == 0 and the pointer is aligned (element by element otherwise), does
@@ -55,10 +55,10 @@ static int launch(const void* codes, const void* adt, void* out, int64_t N,
   const int32_t* c = static_cast<const int32_t*>(codes);
   const T* a = static_cast<const T*>(adt);
   T* o = static_cast<T*>(out);
-  if (vec4)
-    flash_scan_kernel<T, true><<<(int)blocks, threads, smem, stream>>>(c, a, o, N, M, K);
-  else
-    flash_scan_kernel<T, false><<<(int)blocks, threads, smem, stream>>>(c, a, o, N, M, K);
+  auto kernel = vec4 ? flash_scan_kernel<T, true> : flash_scan_kernel<T, false>;
+  const int err = repro_flash::allow_smem(kernel, smem);
+  if (err) return err;
+  kernel<<<(int)blocks, threads, smem, stream>>>(c, a, o, N, M, K);
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,8 @@
 // written per output; the table is read once per block.
 //
 // Design: one block per (query, group of code blocks). The block stages
-// adt[q] in shared memory; thread (g, b) walks the M subspaces of column b,
+// adt[q] in shared memory (above 48 KB through allow_smem's opt-in);
+// thread (g, b) walks the M subspaces of column b,
 // so for each m the threads of a warp read B consecutive int32 codes (one
 // coalesced 128-byte line at B = 32) — the subspace-major layout of the
 // paper's Figure 5 doing on the card what it does for SIMD registers.
@@ -53,6 +54,8 @@ static int launch(const void* blocks, const void* adt, void* out, int Q, int G,
   const int n_gblk = (G + g_per_block - 1) / g_per_block;
   const int threads = repro_flash::threads_for(g_per_block * B);
   const size_t smem = (size_t)M * K * sizeof(T);
+  const int err = repro_flash::allow_smem(flash_scan_blocked_kernel<T>, smem);
+  if (err) return err;
   flash_scan_blocked_kernel<T><<<Q * n_gblk, threads, smem, stream>>>(
       static_cast<const int32_t*>(blocks), static_cast<const T*>(adt),
       static_cast<T*>(out), G, M, B, K, g_per_block, n_gblk);

@@ -15,6 +15,7 @@ Kernel notes (each source in ``csrc/`` carries the full note):
 * ``flash_round`` replaces ``repro/kernels/flash_round.py::flash_round_pallas``.
   Bound by bytes: the gathered (B, C, M) int32 codes (8.2 GB per bulk pass at
   n = 1M, C = 128, M = 16). One block per row, table in shared memory.
+  The table kernels stage tables up to the 227 KB block limit.
 * ``flash_expand`` replaces ``repro/kernels/flash_expand.py::flash_expand_pallas``.
   Bound by the random adjacency and packed code rows (384 B per frontier
   vertex at R = 32, M = 16). One block per (query, vertex group), one
@@ -25,7 +26,8 @@ Kernel notes (each source in ``csrc/`` carries the full note):
   that launched it once per iteration: one launch runs the whole base-layer
   beam search of Q queries. Bound by latency (dependent loads and
   in-block merges), not bytes. One block per query, the beam, table and
-  candidate block in shared memory, visited as one bit per vertex.
+  candidate block in shared memory, visited as one bit per vertex; at most
+  1,024 threads, each taking ⌈W·R / 1,024⌉ slots.
 * ``flash_scan_blocked`` replaces
   ``repro/kernels/flash_scan.py::flash_scan_blocked_pallas``. Bound by the
   (G, M, B) code bytes; warps read one subspace's B codes as one line.
@@ -79,11 +81,12 @@ MIRROR_LAYOUTS = {"unpacked": 0, "words": 1, "bytes": 2}
 
 _LAUNCH_LOCK = threading.Lock()
 
-#: largest per-block table the kernels stage (static shared memory limit)
-_MAX_TABLE_BYTES = 48 * 1024
-
 #: dynamic shared memory one block may have on sm_90 (227 KB)
 _MAX_BLOCK_SMEM = 232448
+
+#: largest per-block table the table kernels stage: the whole block limit
+#: (above 48 KB each takes the opt-in, ``csrc/flash_common.cuh::allow_smem``)
+_MAX_TABLE_BYTES = _MAX_BLOCK_SMEM
 
 #: widest sq_l2 query the kernel stages (q and s2: 32 KiB of shared memory)
 _MAX_SQ_DIM = 4096
@@ -298,8 +301,8 @@ def flash_beam(
         raise TypeError("flash_beam: the beam's d must be float32 and its flags bool")
     if not packed and mirror.dtype != torch.int32:
         raise TypeError(f"flash_beam: mirror must be uint8 or int32, got {mirror.dtype}")
-    if not 1 <= width * r <= 1024:
-        raise ValueError(f"flash_beam: W·R = {width}·{r} must lie in [1, 1024] (one thread per slot)")
+    if width * r < 1:
+        raise ValueError(f"flash_beam: W·R = {width}·{r} must be at least 1")
     if not 1 <= width <= ef:
         raise ValueError(f"flash_beam: width {width} must lie in [1, ef={ef}]")
     smem = _beam_smem_bytes(ef, width, r, m, k)

@@ -1,1 +1,2 @@
-"""Test support of the port: deterministic fault injection (``faults``)."""
+"""Test support of the port: deterministic fault injection (``faults``) and
+baseline backends with exact integer distances (``exact``)."""

@@ -18,8 +18,9 @@ in m order like its plain version, so both table kinds must be equal;
 ``flash_beam`` (int32 tables only) must equal the loop of ``flash_expand``
 launches it replaces bit for bit: ids, dists and both counts; on a packed
 mirror of any M (the byte-wise layout) both equal their plain versions.
-The incremental build on the card equals the CPU path's from one coder's
-state where the two devices' query tables agree, and a snapshot of a card
+The incremental build on the card, and the flat Vamana and NSG builds
+over ``flash_blocked``, equal the CPU path's from one coder's state where
+the two devices' query tables agree, and a snapshot of a card
 index loads back on the card searching identically.
 """
 
@@ -249,8 +250,8 @@ def test_cuda_sq_l2(cuda_device, n, d):
 @pytest.mark.cuda
 def test_cuda_flash_scan_and_sq_l2_raise_on_what_they_do_not_take(cuda_device):
     codes = torch.zeros((8, 16), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):  # a 64 KiB table
-        tops.flash_scan(codes, torch.zeros((16, 1024), dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError, match="shared memory"):  # a 256 KiB table: above 227 KB
+        tops.flash_scan(codes, torch.zeros((16, 4096), dtype=torch.int32, device=cuda_device))
     with pytest.raises(TypeError):
         tops.flash_scan(codes.long(), torch.zeros((16, K), dtype=torch.int32, device=cuda_device))
     with pytest.raises(ValueError):
@@ -318,12 +319,57 @@ def test_cuda_flash_beam_raises_on_what_it_does_not_take(cuda_device):
     adt, rest = args[0], args[1:]
     with pytest.raises(TypeError, match="int32"):
         tops.flash_beam(adt.to(torch.float32), *rest, width=1, max_iters=8)
-    with pytest.raises(ValueError, match="1024"):  # 33 rows of 32 slots
-        tops.flash_beam(adt, *rest[:2], *(t.repeat(1, 3) for t in rest[2:5]), rest[5], width=33,
-                        max_iters=8)
+    with pytest.raises(ValueError, match="width"):  # more rows than the beam holds
+        tops.flash_beam(adt, *rest, width=17, max_iters=8)
     big = _beam_inputs(rng, cuda_device, n=500, r=32, q=2, ef=20000, levels=256, packed=True)
     with pytest.raises(ValueError, match="shared memory"):
         tops.flash_beam(*big, width=1, max_iters=8)
+
+
+@pytest.mark.cuda
+def test_cuda_table_kernels_take_tables_above_48k(cuda_device):
+    """An (M, K) = (64, 256) int32 table (64 KiB, above the 48 KB a kernel
+    gets without the opt-in) through flash_round, flash_scan,
+    flash_scan_blocked and flash_expand: bit-equal to the plain versions."""
+    rng = np.random.default_rng(7)
+    m, k = 64, 256
+    adts = torch.from_numpy(rng.integers(0, 256, (40, m, k)).astype(np.int32)).to(cuda_device)
+    codes = torch.from_numpy(rng.integers(0, k, (40, 96, m)).astype(np.int32)).to(cuda_device)
+    assert torch.equal(tops.flash_round(codes, adts).cpu(), tref.flash_round(codes, adts).cpu())
+    flat = codes.reshape(-1, m).contiguous()
+    assert torch.equal(tops.flash_scan(flat, adts[0]).cpu(), tref.flash_scan(flat, adts[0]).cpu())
+    blocks = codes.reshape(40, 3, 32, m).transpose(-1, -2).contiguous()
+    assert torch.equal(tops.flash_scan_blocked(blocks, adts).cpu(),
+                       tref.flash_scan_blocked(blocks, adts).cpu())
+    n, r = 500, 32
+    mirror = torch.from_numpy(rng.integers(0, k, (n, r, m)).astype(np.int32)).to(cuda_device)
+    adj = torch.from_numpy(rng.integers(-1, n, (n, r)).astype(np.int32)).to(cuda_device)
+    nodes = torch.from_numpy(rng.integers(-1, n, (40, 4)).astype(np.int32)).to(cuda_device)
+    got, want = tops.flash_expand(nodes, adj, mirror, adts), tref.flash_expand(nodes, adj, mirror, adts)
+    assert all(torch.equal(g.cpu(), x.cpu()) for g, x in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ef", [64, 256])
+def test_cuda_flash_beam_more_slots_than_threads(cuda_device, ef):
+    """W = 16 rows of R = 96 slots (W·R = 1,536 > 1,024 threads: two slots a
+    thread) equal the loop of flash_expand launches and the plain version
+    bit for bit: ids, dists and both counts."""
+    rng = np.random.default_rng(ef)
+    args = _beam_inputs(rng, cuda_device, n=20000, r=96, q=100, ef=ef, levels=256, packed=True)
+    adt, adj, mirror = args[:3]
+    max_iters = -(-(4 * ef + 8) // 16)
+    got = tops.flash_beam(*args, width=16, max_iters=max_iters)
+
+    def step(nodes):
+        rows, sums = tops.flash_expand(nodes, adj, mirror, adt)
+        return rows, sums.to(torch.float32)
+
+    loop = tref.beam_loop(step, *args[3:6], args[6], adj.shape[0], width=16, max_iters=max_iters)
+    plain = tref.flash_beam(*(t.cpu() for t in args), width=16, max_iters=max_iters)
+    for g, x, y, name in zip(got, loop, plain, ("dists", "ids", "n_dists", "n_hops")):
+        assert torch.equal(g.cpu(), x.cpu()) and torch.equal(g.cpu(), y), name
+    assert int(got[3].sum()) > 0
 
 
 @pytest.mark.cuda
@@ -420,3 +466,85 @@ def test_cuda_snapshot_round_trip(cuda_device, tmp_path):
     cpu = snap.load_index(path, device="cpu")
     assert torch.equal(cpu.graph.adj0, idx.graph.adj0.cpu())
     assert torch.equal(cpu.backend.nbr_codes, idx.backend.nbr_codes.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,strategy", [("vamana", "bulk"), ("vamana", "incremental"), ("nsg", "bulk"),
+                                           ("nsg", "incremental")])
+def test_cuda_flat_flash_builds_equal_the_cpu_builds(cuda_device, algo, strategy):
+    """Flat Vamana and NSG (``knn_k`` = r_base: the incremental NSG beam
+    reads the mirror) over ``flash_blocked`` at r_base = 24, W = 4, from one
+    coder's state (the incremental NSG from one k-NN graph, the CPU's:
+    ``l2_batch`` may order a near tie otherwise, and one swapped neighbour
+    changes the graph): with equal query tables the graphs, n_dists and a search
+    at ef 128, W = 4 are equal on both devices (the ids, and the Flash
+    distances without rerank; the exact rerank's float32 distances sum in
+    another order, so they are allclose at rtol 1e-5), and the card's
+    build and search launch ``flash_beam``."""
+    from repro_torch.graph import backends as tbk
+    from repro_torch.graph.engine import BuildParams
+    from repro_torch.graph.nsg import build_nsg_stats
+    from repro_torch.index import AnnIndex, exact_knn
+
+    x = torch.from_numpy(_clustered(2000, 48, seed=7))
+    be = tbk.make_backend("flash_blocked", x, seed=0, r_for_blocked=24, device="cpu",
+                          d_f=32, m_f=16, l_f=4, h=8, kmeans_iters=8)
+    card = tbk.FlashBlockedBackend.from_state(be.state_dict(), device=cuda_device)
+    mismatch = int((card.prepare_query(x.to(cuda_device)).adt_q.cpu() != be.prepare_query(x).adt_q).sum())
+    assert mismatch == 0, f"{mismatch} query-table levels differ between the devices"
+    params = BuildParams(r_upper=8, r_base=24, ef=64, batch=32, max_layers=3, width=4, alpha=1.2)
+    kw = dict(knn_k=24) if algo == "nsg" else {}
+    knn = exact_knn(x, x, k=25)[0][:, 1:]
+
+    def build(b):
+        if (algo, strategy) != ("nsg", "incremental"):
+            return AnnIndex.build(x, algo=algo, backend=b, params=params, strategy=strategy, device=b.device, **kw)
+        xd = x.to(b.device)
+        graph, _, st = build_nsg_stats(xd, b, params=params, strategy=strategy, knn_adj=knn, **kw)
+        return AnnIndex.from_graph(graph, xd, algo=algo, params=params, backend_kind="flash_blocked", stats=st,
+                                   strategy=strategy, device=b.device)
+
+    before = tops.launches["flash_beam"]
+    idx = {w: build(b) for w, b in (("card", card), ("cpu", be))}
+    q = x[:64] + 0.25
+    res = {(w, rr): i.search(q.to(i.data.device), k=10, ef=128, width=4, rerank=rr)
+           for w, i in idx.items() for rr in (False, True)}
+    torch.cuda.synchronize()
+    assert tops.launches["flash_beam"] > before
+    st = {w: i.export_state()[1] for w, i in idx.items()}
+    for key, arr in st["cpu"].items():
+        np.testing.assert_array_equal(st["card"][key], arr, err_msg=f"{algo}/{strategy}: {key}")
+    assert idx["card"].last_stats.n_dists == idx["cpu"].last_stats.n_dists
+    for rr in (False, True):
+        assert torch.equal(res["card", rr].ids.cpu(), res["cpu", rr].ids)
+    assert torch.equal(res["card", False].dists.cpu(), res["cpu", False].dists)  # Flash sums: integers
+    torch.testing.assert_close(res["card", True].dists.cpu(), res["cpu", True].dists, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp32", "pq", "sq", "pca"])
+def test_cuda_baseline_builds_equal_the_cpu_builds(cuda_device, kind):
+    """HNSW, Vamana and NSG, bulk and incremental, over a baseline backend
+    with a hand-made coder on 800 integer rows: graphs, distances, entries
+    and n_dists equal on the card and on the CPU, and no Flash kernel runs."""
+    from repro_torch.graph.engine import BuildParams
+    from repro_torch.index import AnnIndex
+    from repro_torch.testing.exact import exact_backends
+
+    x = torch.from_numpy(np.random.default_rng(5).integers(-8, 9, (800, 32)).astype(np.float32))
+    be = {"card": exact_backends(x, cuda_device)[kind], "cpu": exact_backends(x, "cpu")[kind]}
+    before = dict(tops.launches)
+    for algo in ("hnsw", "vamana", "nsg"):
+        params = BuildParams(r_upper=8, r_base=16, ef=32, batch=64, max_layers=2,
+                             alpha=1.2 if algo == "vamana" else 1.0)
+        for strategy in ("bulk", "incremental"):
+            idx = {w: AnnIndex.build(x, algo=algo, backend=b, params=params, strategy=strategy,
+                                     device=b.device) for w, b in be.items()}
+            st = {w: i.export_state()[1] for w, i in idx.items()}
+            for key, arr in st["cpu"].items():
+                np.testing.assert_array_equal(st["card"][key], arr, err_msg=f"{algo}/{strategy}: {key}")
+            assert idx["card"].last_stats.n_dists == idx["cpu"].last_stats.n_dists
+            q = x[:16] + 1
+            assert torch.equal(idx["card"].search(q, k=8, ef=32).ids.cpu(), idx["cpu"].search(q, k=8, ef=32).ids)
+    for name in ("flash_round", "flash_beam", "flash_scan_blocked"):
+        assert tops.launches[name] == before[name], name

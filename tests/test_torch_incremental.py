@@ -166,7 +166,7 @@ def test_from_graph_checks_device_and_algo(from_graph_pair):
     data, _, _, tidx = from_graph_pair
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         AnnIndex.from_graph(tidx.graph, data)  # the default device is the card
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="FlatIndex"):  # a flat algorithm takes a flat graph
         AnnIndex.from_graph(tidx.graph, data, algo="vamana", device="cpu")
 
 

@@ -97,8 +97,11 @@ def test_entry_points_default_to_the_card(setup):
         pytest.skip("a CUDA card is present; this checks the CPU-only behaviour")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         AnnIndex.build(data[:100], backend_kwargs=FLASH_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AnnIndex.build(data[:100], algo="vamana", device="cpu")
+    with pytest.raises(ValueError, match="unknown algo"):
+        AnnIndex.build(data[:100], algo="diskann", device="cpu")
+    # the flat algorithms build (they raised until they were ported)
+    flat = AnnIndex.build(data[:100], algo="vamana", backend="fp32", device="cpu")
+    assert flat.algo == "vamana" and not flat.layered
     # the incremental strategy builds (it raised until it was ported)
     inc = AnnIndex.build(data[:100], strategy="incremental", backend_kwargs=FLASH_KW, device="cpu")
     assert inc.build_strategy == "incremental" and inc.last_stats.phases[0] > 0

@@ -304,8 +304,8 @@ def test_pool_defaults_to_a_snapshot_under_the_workdir(inline_build, tmp_path):
 def test_pool_worker_error_reaches_the_caller(inline_build, tmp_path):
     cfg, inline = inline_build
     plan = inline.plan
-    bad = ShardConfig(**{**cfg.__dict__, "backend": "pq"})
-    with pytest.raises(NotImplementedError, match="5d"):
+    bad = ShardConfig(**{**cfg.__dict__, "algo_kwargs": {"knn_k": 8}})  # an option hnsw does not take
+    with pytest.raises(TypeError, match="knn_k"):
         ShardedBuilder(bad, workers=2, workdir=str(tmp_path), device="cpu").build(plan=plan)
     shutil.rmtree(str(tmp_path / "index.tmp"), ignore_errors=True)
 
