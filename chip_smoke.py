@@ -70,7 +70,7 @@ non-zero and no result line is printed):
             batches), n_dists by phase (bootstrap, beam_upper and beam_base
             must be non-zero), insert batches and ``flash_beam`` launches
             (one per batch), recall@10 at ef ∈ {64, 256}, W ∈ {1, 4}
-            against ``exact_knn`` over those rows, a profiler window over 20
+            against ``exact_knn`` over those rows, a profiler window over 5
             insert batches (busy share, top five kernels, host and card ms
             per batch); beside it the bulk build of the same rows (counted
             apart, as ``incremental_bulk``); and a
@@ -81,10 +81,37 @@ non-zero and no result line is printed):
             loaded back on the card (save and load seconds, bytes): the
             1,000 queries at ef = 64, W = 1 must return the live ids and
             distances. Then ``ShardedBuilder(workers=2, snapshot_path=…,
-            attach=True)`` over the first 65,536 rows in 8 segments (a spawn
+            attach=True)`` over the first 32,768 rows in 8 segments (a spawn
             pool sharing the card) must attach segments bit-equal to the
             inline build of the same plan; both walls and
             ``model_parallel_wall`` of the inline walls.
+7d. serving  the serving runtime (``repro_torch.serve``) over the main
+            path's live index, k = 10, ef = 64, W = 1, exact rerank:
+            ``SearchEngine`` (buckets 1/8/32) serves the 1,000 queries in
+            blocks cycling through 1, 3, 8, 17, 32, 45 (45 chunked): no
+            cold key after ``warmup``, ids equal ``index.search``'s,
+            distances within rtol 1e-5, one ``flash_beam`` launch per
+            padded dispatch; QPS and p50/p99 per block size, the device
+            busy share of 100 one-query dispatches. ``Runtime`` (8
+            closed-loop client threads, deadline 50 ms, max_wait 2 ms,
+            max_queue 256), three waves of single-query requests: 1,000
+            with no mutation; as many as arrive while ``add`` of 256 new
+            rows of the main draw's distribution then ``delete`` of 10,000
+            ids run, and 1,000 more (no request submitted after the delete
+            resolved returns a deleted id, 0 cold dispatches); 1,000 after
+            both (ids equal a direct search of the
+            current generation); QPS, p50/p99, mean packed batch,
+            admission counts and each flip's clone/apply/warm seconds.
+            Durability: ``init_durable`` → ``attach`` → a Runtime adds
+            256 rows and deletes 5,000 → ``recover`` on the card:
+            graph, levels, entry, tombstones bit-equal, same ids; WAL
+            bytes, fsyncs, replay seconds, ``verify_root``. The snapshot
+            phase's 8-segment pool manifest adopted by
+            ``init_from_manifest``, one WAL ``add`` of 256 rows replayed
+            by ``recover`` (routed by ``l2_batch``): equal to a live
+            ``add``. A future that raises (other than the admission
+            policy's shed or reject, which are counted) or a supervisor
+            restart fails the run.
 7b. baselines  the paper's build-speed comparison: bulk HNSW with
             ``BuildParams()`` over the first ``--n-base`` (50,000) rows of the main
             draw for fp32, pq (m = 16, l_pq = 8, 10 k-means iterations), sq
@@ -121,6 +148,11 @@ non-zero and no result line is printed):
             search, ``delete`` 10,000 ids, search (ef = 256, W = 4): no
             deleted id may come back; recall
             against an exact k-NN of the live rows.
+10b. serving_router  ``SegmentRouter`` over phase 10's collection, 256
+            queries, k = 10, ef = 64, W = 4: at n_probe = 64 the ids equal
+            ``SegmentedAnnIndex.search``'s, the fan-out threads equal the
+            loop; QPS and recall@10 (against the live rows' exact k-NN) at
+            n_probe ∈ {1, 4, 64}.
 11. retrieval  BERT4Rec next-item retrieval at the model's full config
             (1,048,575 items, D = 64, 2 blocks, 2 heads, S = 200): rows
             [0, n) of the item table hold a normalized
@@ -140,6 +172,7 @@ non-zero and no result line is printed):
 Launch counts are zeroed just before each path (the main path: phases 3–4;
 the incremental path and the bulk build beside it: phase 6, each counted
 apart, the profiler window in neither; the snapshot path: phase 7; the
+serving path: phases 7d and 10b, each counted, then summed; the
 baselines and generality paths: phases 7b and 7c; the scale-out path:
 phases 8–10; the retrieval path: phase 11) and read just after it;
 the script fails if a kernel of a path never launched there. The main
@@ -171,6 +204,8 @@ GRAPH_EF = (96, 512)  # the example's ef_search (examples/retrieval_serving.py:7
 DELETE_ROWS = 10000  # ids the scale-out path deletes
 N_INC = 10000  # rows of the incremental build (phase 6; PERF.md §4 gives the cut)
 N_BASE = 50_000  # rows of the baselines and generality phases (7b, 7c; PERF.md §4 gives the cut)
+POOL_ROWS = 32768  # rows of the snapshot phase's pool and inline builds (PERF.md §4 gives the cut)
+PROFILED_BATCHES = 5  # insert batches of the incremental path's profiler window (PERF.md §4)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 CUDA_CORE_OPS_PER_S = 67e12  # float32 outside the tensor cores; int32 adds counted at it
 TF32_TENSOR_OPS_PER_S = 495e12  # dense TF32 on the tensor cores, NVIDIA data sheet
@@ -285,6 +320,24 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = CUDA_CORE_OPS_PER_S) 
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def embedding_bag_ms(idx, table, want) -> dict:
+    """The one PyTorch call that computes a table kernel's function:
+    ``F.embedding_bag(idx, table.view(-1, 1), mode="sum")`` over a float32
+    copy of the tables, with ``idx`` the codes offset by m·K (and by the
+    row's table). Exact while every sum stays below 2²⁴ (M·255 here): held
+    equal to the kernel's int32 result ``want``, then timed alone (the
+    offset indices and the float32 copy are made outside the timed call)."""
+    import torch
+    import torch.nn.functional as F
+
+    t32 = table.reshape(-1, 1).to(torch.float32)
+    got = F.embedding_bag(idx, t32, mode="sum")[:, 0]
+    if not torch.equal(got, want.reshape(-1).to(torch.float32)):
+        raise AssertionError("embedding_bag disagrees with the kernel it stands beside")
+    return {"library_ms": time_ms(lambda: F.embedding_bag(idx, t32, mode="sum")),
+            "library_call": "F.embedding_bag(codes + m*K, table.view(-1, 1), mode='sum')"}
+
+
 def check_kernels(dev, n: int) -> dict:
     """Phase 2: every kernel vs its plain version at the main path's shapes."""
     import torch
@@ -323,13 +376,16 @@ def check_kernels(dev, n: int) -> dict:
     adts = ints((b, m, k), 256)
     nbytes = codes.numel() * 4 + adts.numel() * 4 + b * c * 4
     bnd, by = bound_ms(nbytes, b * c * m)
+    mk = torch.arange(m, device=dev) * k
+    idx = (codes.long() + mk + (torch.arange(b, device=dev) * m * k)[:, None, None]).reshape(b * c, m)
     out["flash_round"] = dict(
         shape=[b, c, m], max_abs_err=errs[torch.int32], max_abs_err_f32=errs[torch.float32],
         ms=time_ms(lambda: ops.flash_round(codes, adts)),
         device_ms=profiler_kernel_ms(lambda: ops.flash_round(codes, adts), "flash_round_kernel"),
         plain_ms=time_ms(lambda: ref.flash_round(codes, adts), reps=3, inner=2),
-        bound_ms=bnd, bound_by=by, library_ms=None,
+        bound_ms=bnd, bound_by=by, **embedding_bag_ms(idx, adts, ops.flash_round(codes, adts)),
     )
+    del idx
 
     # flash_expand / flash_scan_blocked: one base-layer beam step of a
     # 1000-query search on an n-vertex graph
@@ -370,6 +426,9 @@ def check_kernels(dev, n: int) -> dict:
         blocks = fl.unpack_codes(mirror[nodes.clamp_min(0).long()], m).transpose(-1, -2).contiguous()
         nbytes = blocks.numel() * 4 + adt.numel() * 4 + slots * 4
         bnd, by = bound_ms(nbytes, slots * m)
+        mk = (torch.arange(m, device=dev) * k)[None, None, :, None]
+        idx = (blocks.long() + mk + (torch.arange(q, device=dev) * m * k)[:, None, None, None])
+        idx = idx.transpose(-1, -2).reshape(-1, m).contiguous()
         out[f"flash_scan_blocked_w{w}"] = dict(
             shape=list(blocks.shape), max_abs_err=errs[("scan", torch.int32)],
             max_abs_err_f32=errs[("scan", torch.float32)],
@@ -377,8 +436,10 @@ def check_kernels(dev, n: int) -> dict:
             device_ms=profiler_kernel_ms(lambda: ops.flash_scan_blocked(blocks, adt),
                                          "flash_scan_blocked_kernel"),
             plain_ms=time_ms(lambda: ref.flash_scan_blocked(blocks, adt), reps=3, inner=2),
-            bound_ms=bnd, bound_by=by, library_ms=None,
+            bound_ms=bnd, bound_by=by,
+            **embedding_bag_ms(idx, adt, ops.flash_scan_blocked(blocks, adt)),
         )
+        del idx
     del mirror_i32
     out.update(check_flash_beam(ints, adjacency, n, m, k, r))
     out.update(check_any_m(ints, adjacency, n, k, r))
@@ -411,14 +472,15 @@ def check_kernels(dev, n: int) -> dict:
         errs[dt] = compare("flash_scan", ops.flash_scan(codes, adt), ref.flash_scan(codes, adt), adt)
     adt = ints((m, k), 256)
     bnd, by = bound_ms(codes.numel() * 4 + adt.numel() * 4 + nc * 4, nc * m)
+    idx = codes.long() + torch.arange(m, device=dev) * k
     out["flash_scan"] = dict(
         shape=[nc, m, k], max_abs_err=errs[torch.int32], max_abs_err_f32=errs[torch.float32],
         ms=time_ms(lambda: ops.flash_scan(codes, adt)),
         device_ms=profiler_kernel_ms(lambda: ops.flash_scan(codes, adt), "flash_scan_kernel"),
         plain_ms=time_ms(lambda: ref.flash_scan(codes, adt), reps=3, inner=2),
-        bound_ms=bnd, bound_by=by, library_ms=None,
+        bound_ms=bnd, bound_by=by, **embedding_bag_ms(idx, adt, ops.flash_scan(codes, adt)),
     )
-    del codes
+    del codes, idx
 
     # sq_l2: a 1M-row scan of 8-bit SQ codes at D = 128, positive scales
     ns, ds = 1 << 20, 128
@@ -926,8 +988,8 @@ def incremental_path(dev, base_np, queries, n_inc: int, t_start: float) -> dict:
     batches and ``flash_beam`` launches (one per insert batch: its
     base-layer acquisition), recall@10 at ef ∈ {64, 256}, W ∈ {1, 4} against
     ``exact_knn`` over those rows, the share of rows the base layer reaches
-    from the entry, and a profiler window over 20 more insert
-    batches (``add`` of 640 rows to a copy: the same program) for the card's
+    from the entry, and a profiler window over ``PROFILED_BATCHES`` more
+    insert batches (``add`` to a copy: the same program) for the card's
     busy share and the time per insert batch on the host and on the card.
     Beside it the bulk build of the same rows, and the card against the CPU
     path on a 4,000-row incremental build with an M = 8 coder (4 bytes per
@@ -991,16 +1053,16 @@ def incremental_path(dev, base_np, queries, n_inc: int, t_start: float) -> dict:
     sync(dev)
     launches = dict(ops.launches)
     inc_reach = float(bfs_reachable(index.graph.adj0.cpu().numpy(), index.graph.entry).mean())
-    # 20 more insert batches under the profiler (not counted: the path's
+    # more insert batches under the profiler (not counted: the path's
     # launches were read above)
-    extra = torch.from_numpy(base_np[n_inc:n_inc + 20 * params.batch]).to(dev)
+    extra = torch.from_numpy(base_np[n_inc:n_inc + PROFILED_BATCHES * params.batch]).to(dev)
     copies = iter([index.clone(), index.clone()])
     t0 = time.perf_counter()
     window = device_window(lambda: next(copies).add(extra), cpu=False)
     window["warmup_window_and_parse_s"] = time.perf_counter() - t0
     if "window_ms" in window:
-        window["host_ms_per_insert_batch"] = window["window_ms"] / 20
-        window["device_ms_per_insert_batch"] = window["device_ms"] / 20
+        window["host_ms_per_insert_batch"] = window["window_ms"] / PROFILED_BATCHES
+        window["device_ms_per_insert_batch"] = window["device_ms"] / PROFILED_BATCHES
     del index, copies
     # the bulk build of the same rows beside it, counted apart from the path
     ops.reset_launches()
@@ -1042,7 +1104,7 @@ def incremental_path(dev, base_np, queries, n_inc: int, t_start: float) -> dict:
           "insert_batches": batches, "flash_beam_launches": inc_launches["flash_beam"],
           "s_per_insert_batch": st.seconds["insert_batches"] / max(1, batches),
           "results": inc_results, "reachable_from_entry": inc_reach,
-          "profile_20_insert_batches": window,
+          "profile_insert_batches": {"batches": PROFILED_BATCHES, **window},
           "bulk": {"build_s": bulk_wall, "seconds": bst.seconds, "n_dists": bst.n_dists,
                    "n_dists_by_phase": dict(zip(PHASE_NAMES, bst.phases)),
                    "repair_unreachable": bst.repair_unreachable, "results": bulk_results,
@@ -1058,7 +1120,7 @@ def snapshot_path(index, base_np, queries, spill: str, t_start: float):
     """Phase 7: the main index through the port's snapshot files and back on
     the card (the live index's search ids and distances must come back), then
     the sharded builder's spawn pool: ``ShardedBuilder(workers=2,
-    snapshot_path=…, attach=True)`` over the first 65,536 rows in 8 segments
+    snapshot_path=…, attach=True)`` over the first ``POOL_ROWS`` rows in 8 segments
     must attach segments bit-equal (adj0, adj_up, mirror) to the inline build
     of the same plan. Returns the path's launches (this process's; the pool's
     workers count their own)."""
@@ -1090,7 +1152,7 @@ def snapshot_path(index, base_np, queries, spill: str, t_start: float):
     del loaded
     shutil.rmtree(path, ignore_errors=True)
 
-    rows = 65536
+    rows = POOL_ROWS
     cfg = ShardConfig(n_segments=8, chunk_size=65536, balanced=True, algo="hnsw", backend="flash_blocked",
                       strategy="bulk", params=BuildParams(), backend_kwargs=dict(d_f=64, m_f=16, l_f=4, h=8))
     inline_builder = ShardedBuilder(cfg, workdir=os.path.join(spill, "pool_inline"), device=dev)
@@ -1158,13 +1220,13 @@ def timed_search(coll, queries, **kw):
     return res, dt
 
 
-def scale_out_path(base_np, queries, gt, spill: str, t_start: float) -> tuple[dict, dict]:
+def scale_out_path(base_np, queries, gt, spill: str, t_start: float):
     """Phases 8–10 on the main path's rows: sharded streaming build of all
     but the last ``ADD_ROWS`` rows, segmented fan-out search, routed growth
     of those rows and deletion, scored against the main path's ground
     truth ``gt`` and then an ``exact_knn`` of the live rows. Returns the
-    path's kernel launches and its ``l2_batch`` launches by use
-    (assignment, add, ground truth)."""
+    path's kernel launches, its ``l2_batch`` launches by use (assignment,
+    add, ground truth), the collection and the live rows' ground truth."""
     import torch
 
     from repro_torch.graph.engine import BuildParams
@@ -1280,7 +1342,364 @@ def scale_out_path(base_np, queries, gt, spill: str, t_start: float) -> tuple[di
     for name in ("flash_round", "flash_beam", "l2_batch"):
         if launches[name] == 0:
             raise AssertionError(f"the scale-out path never launched {name}")
-    return launches, l2_uses
+    return launches, l2_uses, coll, gt_live
+
+
+# ---------------------------------------------------------------------------
+# The serving path (phase 7d; the router at the end of the scale-out path)
+# ---------------------------------------------------------------------------
+
+SERVE_BLOCKS = (1, 3, 8, 17, 32, 45)  # engine block sizes; 45 > the top bucket (chunked)
+SERVE_CLIENTS = 8  # closed-loop client threads of the Runtime waves
+SERVE_WAVE = 1000  # requests per wave
+# rows the second wave adds, then deletes; the durable Runtime's; the
+# segmented replay's add (each add cut from 1,000: PERF.md §4)
+SERVE_ADD, SERVE_DELETE = 256, 10000
+DURABLE_ADD, DURABLE_DELETE = 256, 5000
+SEG_ADD = 256
+ROUTER_QUERIES = 256
+ROUTER_PROBES = (1, 4, 64)
+
+
+def fresh_rows(m: int, seed: int, d: int = 128, n_clusters: int = 64) -> np.ndarray:
+    """``m`` new rows of the main draw's distribution: the centres and scales
+    of ``vector_dataset(0, d=128, n_clusters=64)``, the cluster picks and the
+    noise from their own stream ``default_rng([0, seed])``."""
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(n_clusters, d)).astype(np.float32)
+    scales = np.linspace(1.0, 0.2, d).astype(np.float32)
+    own = np.random.default_rng([0, seed])
+    x = centers[own.integers(0, n_clusters, m)]
+    x += own.normal(size=(m, d)).astype(np.float32) * scales
+    return x
+
+
+def run_wave(rt, q_np, during=None) -> dict:
+    """``SERVE_WAVE`` single-query requests from ``SERVE_CLIENTS`` closed-loop
+    client threads (query i is ``q_np[i % len]``); with ``during``, the
+    clients send requests for as long as ``during()`` runs on this thread
+    and ``SERVE_WAVE`` more after it returned. A shed or rejected request
+    is the admission policy's decision and is counted; any other
+    exception from a future fails the run. Returns the records and the
+    runtime's stats."""
+    import threading
+
+    from repro_torch import serve
+
+    lock = threading.Lock()
+    nxt = [0]
+    limit = [SERVE_WAVE if during is None else float("inf")]
+    recs, errors = [], []
+
+    def client():
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+                if i >= limit[0]:
+                    return
+            t_sub = time.perf_counter()
+            try:
+                res = rt.submit(q_np[i % len(q_np)]).result(timeout=120)
+                recs.append((i, t_sub, res.ids))
+            except (serve.DeadlineExceededError, serve.QueueFullError) as exc:
+                recs.append((i, t_sub, type(exc).__name__))
+            except BaseException as exc:  # noqa: BLE001 — reported, then the run fails
+                errors.append(repr(exc))
+
+    rt.reset_stats()
+    threads = [threading.Thread(target=client, name=f"client-{c}") for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    info = None
+    if during is not None:
+        info = during()
+        with lock:
+            limit[0] = nxt[0] + SERVE_WAVE
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a Runtime client thread is still waiting after 600 s")
+    if errors:
+        raise AssertionError(f"{len(errors)} Runtime futures raised: {errors[:3]}")
+    st = rt.stats()
+    if st["thread_restarts"]:
+        raise AssertionError(f"the Runtime's supervisor restarted a loop {st['thread_restarts']} times")
+    served = [r for r in recs if not isinstance(r[2], str)]
+    return {"recs": served, "info": info, "stats": {
+        "requests": len(recs), "served": len(served), "seconds": wall, "qps": len(served) / wall,
+        "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"], "queue_p99_ms": st["queue_p99_ms"],
+        "service_p50_ms": st["service_p50_ms"], "mean_batch": st["mean_batch"], "batches": st["batches"],
+        "rejected": st["rejected"], "shed": st["shed"], "missed": st["deadline_misses"],
+        "cold_dispatches": st["cold_dispatches"], "generation": st["generation"]}}
+
+
+def flip_seconds() -> list:
+    """Each recorded generation flip's clone / apply / prepare (warm) / log
+    seconds, from the ``serve/flip`` spans."""
+    from repro_torch import obs
+
+    return [{"gen": sp.attrs.get("gen"), "total_s": sp.dur_s,
+             **{c.name.rsplit("/", 1)[-1] + "_s": c.dur_s for c in sp.children}}
+            for sp in obs.spans("serve/flip")]
+
+
+def serving_path(index, base_np, q_np, queries, spill: str, t_start: float) -> dict:
+    """Phase 7d, the serving runtime over the main path's live index:
+    the engine (block sizes, warm keys, ids against ``index.search``), the
+    Runtime's three waves (no mutation; an add and a delete beside the
+    traffic; after both), durability (``init_durable`` → ``attach`` →
+    Runtime add/delete → ``recover``, bit-equal) and the snapshot phase's
+    8-segment pool manifest adopted as a durable root with one WAL ``add``
+    replayed (routed by ``l2_batch``), equal to a live add. Returns the
+    path's launches."""
+    import torch
+
+    from repro_torch import obs, serve
+    from repro_torch.kernels import ops
+    from repro_torch.serve.recovery import wal_path
+    from repro_torch.utils import sync
+
+    dev = queries.device
+    out = {}
+    ops.reset_launches()
+    t_phase = time.perf_counter()
+
+    # ---- the engine ----------------------------------------------------------
+    eng = serve.SearchEngine(index, k=10, ef=64, width=1, rerank=True, q_buckets=(1, 8, 32))
+    t0 = time.perf_counter()
+    eng.warmup()
+    warm_s = time.perf_counter() - t0
+    compiles = eng.n_compiles
+    eng.reset_stats()
+    lat = {b: [] for b in SERVE_BLOCKS}  # (queries, seconds) per block, by nominal size
+    ids, dists = [], []
+    beam0, off, j = ops.launches["flash_beam"], 0, 0
+    while off < QUERIES:
+        b = min(SERVE_BLOCKS[j % len(SERVE_BLOCKS)], QUERIES - off)
+        t0 = time.perf_counter()
+        res = eng.search(q_np[off:off + b])
+        lat[SERVE_BLOCKS[j % len(SERVE_BLOCKS)]].append((b, time.perf_counter() - t0))
+        ids.append(res.ids)
+        dists.append(res.dists)
+        off += b
+        j += 1
+    beam_launches = ops.launches["flash_beam"] - beam0
+    est = eng.stats()
+    eng_ids, eng_d = torch.cat(ids), torch.cat(dists)
+    direct = index.search(queries, k=10, ef=64, width=1)
+    if eng.n_compiles != compiles:
+        raise AssertionError(f"the engine met {eng.n_compiles - compiles} cold keys after warmup")
+    if not torch.equal(eng_ids, direct.ids):
+        raise AssertionError("the engine's ids differ from index.search(queries, ef=64)")
+    if not torch.allclose(eng_d, direct.dists, rtol=1e-5, atol=0.0):
+        raise AssertionError("the engine's distances are off index.search's by more than rtol 1e-5")
+    if beam_launches != est["blocks"]:
+        raise AssertionError(f"{beam_launches} flash_beam launches for {est['blocks']} padded dispatches")
+    per_block = {}
+    for b, v in lat.items():
+        qs, secs = np.array([x[0] for x in v]), np.array([x[1] for x in v])
+        per_block[str(b)] = {"blocks": len(v), "queries": int(qs.sum()), "qps": float(qs.sum() / secs.sum()),
+                             "p50_ms": float(np.percentile(secs, 50) * 1e3),
+                             "p99_ms": float(np.percentile(secs, 99) * 1e3)}
+    window = device_window(lambda: [eng.search(q_np[i]) for i in range(100)], cpu=False)
+    out["engine"] = {"buckets": [1, 8, 32], "warmup_s": warm_s, "compiles_after_warmup": 0,
+                     "keys": compiles, "blocks": est["blocks"], "padded_queries": est["padded_queries"],
+                     "flash_beam_launches": beam_launches, "qps": est["qps"], "p50_ms": est["p50_ms"],
+                     "p99_ms": est["p99_ms"], "per_block_size": per_block,
+                     "n_dists_per_query": est["n_dists_per_query"], "ids_equal_index_search": True,
+                     "profile_100_single_queries": window}
+    eng_np = eng_ids.cpu().numpy()
+
+    # ---- the Runtime: three waves ----------------------------------------------
+    new_rows = fresh_rows(SERVE_ADD, 1)
+    dead = np.random.default_rng(18).choice(index.n, SERVE_DELETE, replace=False)
+    obs.enable()
+    obs.clear_spans()
+    try:
+        with serve.Runtime(index, k=10, ef=64, q_buckets=(1, 8, 32), max_wait_ms=2.0, max_queue=256,
+                           default_deadline_ms=50.0) as rt:
+            rt.warmup()
+            w1 = run_wave(rt, q_np)
+            for i, _, got in w1["recs"]:
+                if not np.array_equal(got, eng_np[i % QUERIES]):
+                    raise AssertionError(f"wave 1: request {i} returned other ids than the engine")
+
+            def mutate():
+                stamp = []
+                t0 = time.perf_counter()
+                rt.add(new_rows).result(timeout=600)
+                add_s = time.perf_counter() - t0
+                fut = rt.delete(dead)
+                fut.add_done_callback(lambda f: stamp.append(time.perf_counter()))
+                fut.result(timeout=600)
+                return {"add_s": add_s, "delete_s": time.perf_counter() - t0 - add_s, "resolved": stamp[0]}
+
+            w2 = run_wave(rt, q_np, during=mutate)
+            resolved = w2["info"].pop("resolved")
+            after = [r for r in w2["recs"] if r[1] > resolved]
+            if len(after) < SERVE_WAVE // 2:
+                raise AssertionError(f"wave 2: only {len(after)} requests followed the delete")
+            bad = sum(bool(np.isin(got, dead).any()) for _, _, got in after)
+            if bad:
+                raise AssertionError(f"wave 2: {bad} requests submitted after the delete resolved returned a deleted id")
+            if w2["stats"]["cold_dispatches"]:
+                raise AssertionError(f"wave 2: {w2['stats']['cold_dispatches']} cold dispatches")
+            flips = flip_seconds()
+            w3 = run_wave(rt, q_np)
+            now = rt.handle.current.index
+            live = now.search(queries, k=10, ef=64, width=1).ids.cpu().numpy()
+            for i, _, got in w3["recs"]:
+                if not np.array_equal(got, live[i % QUERIES]):
+                    raise AssertionError(f"wave 3: request {i} returned other ids than handle.current.index")
+            if np.isin(live, dead).any():
+                raise AssertionError("a deleted id came back from the current generation")
+            health = rt.health()
+            del now
+    finally:
+        obs.disable()
+    out["runtime"] = {"clients": SERVE_CLIENTS, "default_deadline_ms": 50.0, "max_wait_ms": 2.0, "max_queue": 256,
+                      "wave1": w1["stats"], "wave2": {**w2["stats"], **w2["info"], "added": SERVE_ADD,
+                                                       "deleted": SERVE_DELETE,
+                                                       "requests_after_delete": len(after)},
+                      "wave3": w3["stats"], "flips": flips, "ids_wave1_equal_engine": True,
+                      "ids_wave3_equal_current": True, "healthy": health["healthy"]}
+
+    # ---- durability ----------------------------------------------------------------
+    root = os.path.join(spill, "durable")
+    sync(dev)
+    t0 = time.perf_counter()
+    serve.init_durable(root, index)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    handle, ckpt, _ = serve.attach(root, fsync="batch", device=dev)
+    attach_s = time.perf_counter() - t0
+    try:
+        obs.enable()
+        obs.clear_spans()
+        with serve.Runtime(handle, k=10, ef=64, q_buckets=(1, 8, 32)) as rt:
+            rt.add(fresh_rows(DURABLE_ADD, 2)).result(timeout=600)
+            rt.delete(np.random.default_rng(19).choice(index.n, DURABLE_DELETE, replace=False)).result(timeout=600)
+            if rt.stats()["thread_restarts"]:
+                raise AssertionError("the durable Runtime's supervisor restarted a loop")
+        durable_flips = flip_seconds()
+    finally:
+        obs.disable()
+        ckpt.close()
+        wal = handle.wal.stats()
+        handle.wal.close()
+    live = handle.current.index
+    sync(dev)
+    t0 = time.perf_counter()
+    rec = serve.recover(root, device=dev)
+    sync(dev)
+    replay_s = time.perf_counter() - t0
+    got, want = rec.index.graph, live.graph
+    for name in ("adj0", "adj_up", "levels"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"recover: {name} differs from the live handle's index")
+    if got.entry != want.entry or not np.array_equal(rec.index.tombstones, live.tombstones):
+        raise AssertionError("recover: the entry or the tombstones differ from the live handle's index")
+    if not torch.equal(rec.index.search(queries, k=10, ef=64).ids, live.search(queries, k=10, ef=64).ids):
+        raise AssertionError("recover: search ids differ from the live handle's index")
+    report = serve.verify_root(root, device=dev)
+    if not report["ok"] or report["wal"]["replayable"] != 2:
+        raise AssertionError(f"verify_root: {report}")
+    out["durability"] = {"n": int(live.n), "added": DURABLE_ADD, "deleted": DURABLE_DELETE,
+                         "init_s": init_s, "attach_s": attach_s, "wal_bytes": wal["bytes"],
+                         "wal_fsyncs": wal["fsyncs"], "wal_appends": wal["appends"], "replayed": rec.replayed,
+                         "recover_s": replay_s, "flips": durable_flips, "recovered_bit_equal": True,
+                         "verify_root": {k: report[k] for k in ("ok", "checkpoint_lsn", "wal", "snapshot")}}
+    del rec, live, handle
+    shutil.rmtree(root, ignore_errors=True)
+
+    # ---- the sharded pool's manifest as a durable root -----------------------------
+    manifest = os.path.join(spill, "snapshot", "pool")
+    root = os.path.join(spill, "durable_seg")
+    rows = fresh_rows(SEG_ADD, 3)
+    _, adopted = serve.init_from_manifest(root, manifest, device=dev)
+    del adopted
+    with serve.WalWriter(wal_path(root), fsync="batch") as w:
+        w.append("add", {"vectors": rows})
+        w.commit()
+    l2_0 = ops.launches["l2_batch"]
+    t0 = time.perf_counter()
+    rec = serve.recover(root, device=dev)
+    sync(dev)
+    seg_replay_s = time.perf_counter() - t0
+    replay_l2 = ops.launches["l2_batch"] - l2_0
+    live = serve.load_index(manifest, device=dev)
+    live.add(rows)
+    for s, (a, b) in enumerate(zip(rec.index.segments, live.segments)):
+        if not np.array_equal(rec.index.global_ids(s), live.global_ids(s)):
+            raise AssertionError(f"segmented replay: segment {s} routed other rows than a live add")
+        for name, x, y in (("adj0", a.graph.adj0, b.graph.adj0), ("adj_up", a.graph.adj_up, b.graph.adj_up),
+                           ("mirror", a.backend.nbr_codes, b.backend.nbr_codes)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"segmented replay: segment {s} differs from a live add in {name}")
+    if replay_l2 == 0:
+        raise AssertionError("the segmented replay never launched l2_batch")
+    out["segmented_recovery"] = {"segments": len(live.segments), "n": int(live.n), "added": SEG_ADD,
+                                 "replay_s": seg_replay_s, "replay_l2_batch_launches": replay_l2,
+                                 "equals_live_add": True,
+                                 "routed": [int(len(rec.index.global_ids(s))) for s in range(len(live.segments))]}
+    del rec, live
+    shutil.rmtree(root, ignore_errors=True)
+    sync(dev)
+    launches = dict(ops.launches)
+    emit({"phase": "serving", **out, "launches": launches, "phase_s": time.perf_counter() - t_phase,
+          "elapsed_s": time.perf_counter() - t_start})
+    return launches
+
+
+def serving_router(coll, queries, gt, t_start: float) -> dict:
+    """The router half of the serving path, over the scale-out path's
+    64-segment collection as phase 10 left it: at n_probe = 64 the ids must
+    equal ``SegmentedAnnIndex.search`` at the same spec, and the fan-out
+    threads the loop; QPS and recall@10 at each n_probe. Returns its
+    launches."""
+    import torch
+
+    from repro_torch import serve
+    from repro_torch.kernels import ops
+    from repro_torch.utils import sync
+
+    dev = queries.device
+    q = queries[:ROUTER_QUERIES]
+    q_np = q.cpu().numpy()
+    ops.reset_launches()
+    t_phase = time.perf_counter()
+    rows = []
+    # one router, warmed once; its probe count is set per row
+    router = serve.SegmentRouter(coll, n_probe=len(coll.segments), k=10, ef=64, width=4,
+                                 q_buckets=(1, 8, 32), fanout=False).warmup()
+    for n_probe in ROUTER_PROBES:
+        router.n_probe = n_probe
+        sync(dev)
+        t0 = time.perf_counter()
+        res = router.search(q_np)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        rows.append({"n_probe": n_probe, "qps": ROUTER_QUERIES / dt, "seconds": dt,
+                     "recall@10": recall_at(res.ids, gt[:ROUTER_QUERIES]), "n_scan": res.n_scan,
+                     "n_rerank": res.n_rerank})
+        if n_probe == len(coll.segments):
+            want = coll.search(q, k=10, ef=64, width=4)
+            if not torch.equal(res.ids, want.ids):
+                raise AssertionError("the router at the full probe returned other ids than SegmentedAnnIndex.search")
+            router.fanout = True
+            if not torch.equal(router.search(q_np).ids, res.ids):
+                raise AssertionError("the router's fan-out threads returned other ids than its loop")
+            router.fanout = False
+    sync(dev)
+    launches = dict(ops.launches)
+    emit({"phase": "serving_router", "queries": ROUTER_QUERIES, "segments": len(coll.segments), "k": 10,
+          "ef": 64, "width": 4, "results": rows, "full_probe_equals_segmented_search": True,
+          "fanout_equals_loop": True, "launches": launches, "phase_s": time.perf_counter() - t_phase,
+          "elapsed_s": time.perf_counter() - t_start})
+    return launches
 
 
 def path_ms(fn, reps: int = 5) -> float:
@@ -1486,9 +1905,18 @@ def check_repaired_limits(dev, g) -> dict:
     rows_p, sums_p = ref.flash_expand(nodes, adj, mirror, adts)
     same("flash_expand rows (64 KiB table)", rows, rows_p)
     same("flash_expand (64 KiB table)", sums, sums_p)
-    out = {"table_64k": {"shape_mk": [m, k], "table_bytes": m * k * 4, "bit_equal": True,
+    bnd, by = bound_ms(codes.numel() * 4 + adts.numel() * 4 + b * 128 * 4, b * 128 * m)
+    idx = (codes.long() + torch.arange(m, device=dev) * k
+           + (torch.arange(b, device=dev) * m * k)[:, None, None]).reshape(b * 128, m)
+    lib = embedding_bag_ms(idx, adts, ops.flash_round(codes, adts))
+    del idx
+    out = {"table_64k": {"shape_mk": [m, k], "shape": [b, 128, m], "table_bytes": m * k * 4, "bit_equal": True,
+                         **lib,
                          "flash_round_ms": time_ms(lambda: ops.flash_round(codes, adts)),
-                         "flash_round_plain_ms": time_ms(lambda: ref.flash_round(codes, adts), reps=3, inner=2)}}
+                         "flash_round_device_ms": profiler_kernel_ms(lambda: ops.flash_round(codes, adts),
+                                                                     "flash_round_kernel"),
+                         "flash_round_plain_ms": time_ms(lambda: ref.flash_round(codes, adts), reps=3, inner=2),
+                         "bound_ms": bnd, "bound_by": by}}
     del codes, flat, blocks, mirror
 
     # flash_beam, W = 16 rows of R = 96 slots, over a random 200k-vertex graph
@@ -1534,10 +1962,17 @@ def beam_bit_equal(ints, *, n: int, r: int, w: int, q: int, efs, empty: float = 
             for x, y, name in zip(got, want, ("dists", "ids", "n_dists", "n_hops")):
                 if not torch.equal(x.cpu(), y.cpu()):
                     raise AssertionError(f"flash_beam W={w} R={r} ef={ef} Q={q}: {name} differs from {against}")
+        hops = int(got[3].sum())
+        # the bytes the search needs, as check_flash_beam counts them
+        nbytes = adt.numel() * 4 + hops * r * (4 + m // 2) + q * ef * 17 + q * 16 + entries.numel() * 4
+        bnd, by = bound_ms(nbytes, hops * r * m)
         out[f"ef{ef}"] = {
             "queries": q, "n": n, "empty_slots": empty, "bit_equal": True, "n_dists": int(got[2].sum()),
-            "n_hops": int(got[3].sum()),
-            "ms": time_ms(lambda: ops.flash_beam(*args, width=w, max_iters=max_iters), reps=3, inner=1)}
+            "n_hops": hops,
+            "ms": time_ms(lambda: ops.flash_beam(*args, width=w, max_iters=max_iters), reps=3, inner=1),
+            "device_ms": profiler_kernel_ms(lambda: ops.flash_beam(*args, width=w, max_iters=max_iters),
+                                            "flash_beam_kernel", reps=3),
+            "bound_ms": bnd, "bound_by": by}
     torch.cuda.synchronize()
     return out
 
@@ -2072,6 +2507,9 @@ def main() -> int:
         for name in ("flash_beam", "flash_round", "l2_batch"):
             if snap_launches[name] == 0:
                 raise AssertionError(f"the snapshot path never launched {name}")
+
+        # ---- 7d. the serving runtime over the live index --------------------
+        serve_launches = serving_path(index, base_np, q_np, queries, spill, t_start)
         del index, data
 
         # ---- 7b. the baseline backends, 7c. the flat graphs -----------------
@@ -2081,7 +2519,14 @@ def main() -> int:
         gen_launches = generality_path(dev, base_np, queries, args.n_base, t_start)
 
         # ---- 8.–10. the scale-out path --------------------------------------
-        scale_launches, l2_uses = scale_out_path(base_np, queries, gt, spill, t_start)
+        scale_launches, l2_uses, coll, gt_live = scale_out_path(base_np, queries, gt, spill, t_start)
+        # ---- 10b. the serving router over the scale-out collection ----------
+        router_launches = serving_router(coll, queries, gt_live, t_start)
+        del coll
+        serve_launches = {k: serve_launches[k] + router_launches[k] for k in serve_launches}
+        for name in ("flash_beam", "l2_batch"):
+            if serve_launches[name] == 0:
+                raise AssertionError(f"the serving path never launched {name}")
     finally:
         shutil.rmtree(spill, ignore_errors=True)
     # l2_batch's launches, split by what called it: the assignments (the
@@ -2089,6 +2534,7 @@ def main() -> int:
     # truths that score the main, scale-out and incremental paths
     l2_uses["ground_truth"] += gt_l2 + inc_gt_l2 + base_gt_l2 + gen_launches["l2_batch"]
     l2_uses["assignment"] += snap_launches["l2_batch"]
+    l2_uses["serving"] = serve_launches["l2_batch"]
 
     # ---- 11. the retrieval path ------------------------------------------------
     retrieval_launches = retrieval_path(dev, t_start)
@@ -2102,12 +2548,12 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
                      "launches": (launches[name] + inc_launches[name] + bulk_launches[name] + snap_launches[name]
                                   + scale_launches[name] + retrieval_launches[name] + base_launches[name]
-                                  + gen_launches[name]),
+                                  + gen_launches[name] + serve_launches[name]),
                      "max_abs_err": kr["max_abs_err"], "ms": kr["ms"],
                      "plain_ms": kr["plain_ms"], "bound_ms": kr["bound_ms"], "bound_by": kr["bound_by"],
                      "library_ms": kr["library_ms"], "shape": kr["shape"]})
         rows[-1].update({f: kr[f] for f in ("device_ms", "step_loop_ms", "workspace_bytes", "ms_warm",
-                                            "bound_fp32_fma_ms") if f in kr})
+                                            "bound_fp32_fma_ms", "library_call") if f in kr})
         if isinstance(kr.get("device_ms"), float):  # events minus device: the wrapper's host cost
             rows[-1]["host_us_per_call"] = (kr["ms"] - kr["device_ms"]) * 1e3
         if name == "l2_batch":
@@ -2121,15 +2567,18 @@ def main() -> int:
                                            "incremental": inc_launches[name],
                                            "incremental_bulk": bulk_launches[name], "snapshot": snap_launches[name],
                                            "scale_out": scale_launches[name], "baselines": base_launches[name],
-                                           "generality": gen_launches[name]}
+                                           "generality": gen_launches[name], "serving": serve_launches[name]}
             rows[-1]["w16_r96"] = kern["limits"]["flash_beam_w16_r96"]
+            rows[-1]["flat_w4_r24"] = {key: kern["flat_shapes"][key] for key in (
+                "flash_beam_w4_r24_search", "flash_beam_w4_r24_insert_batch")}
             rows[-1]["byte_layout_m8"] = kern["flash_beam_m8_bytes"]
             rows[-1]["byte_layout_m16"] = kern["flash_beam_ef64_w1"]["bytes_layout_same_inputs"]
         if name == "flash_round":
             rows[-1]["launches_by_use"] = {"main": launches[name], "incremental": inc_launches[name],
                                            "incremental_bulk": bulk_launches[name], "snapshot": snap_launches[name], "scale_out": scale_launches[name],
                                            "retrieval_graph": retrieval_launches[name],
-                                           "baselines": base_launches[name], "generality": gen_launches[name]}
+                                           "baselines": base_launches[name], "generality": gen_launches[name],
+                                           "serving": serve_launches[name]}
             rows[-1]["table_64k"] = kern["limits"]["table_64k"]
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import INF, stable_smallest  # noqa: F401  (the graph modules import both from here)
 from repro_torch.utils import first_argmin
@@ -81,6 +82,8 @@ def beam_search(
             f"fused=True but {type(backend).__name__} does not support the "
             f"fused beam path for adjacency width R={r}"
         )
+
+    obs.tick("beam_dispatch_total", route="fused" if use_fused else "gather")
 
     entry_ids = entry_ids.to(torch.int32).contiguous()
     valid_e = entry_ids >= 0

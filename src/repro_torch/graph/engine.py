@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.graph.backends import ctx_rows
 from repro_torch.graph.beam import INF, BeamResult, beam_search, stable_smallest
 from repro_torch.graph.select import Selection, prune_list, select_neighbors
@@ -554,6 +555,12 @@ def bulk_refine(
         n_scored += int((~bad).sum())
     pool_ids = torch.cat([pool_ids, aug_ids], 1)
     pool_d = torch.cat([pool_d, aug_d], 1)
+    if obs.enabled():
+        # init merge + per-round passes + exit merge + random augmentation,
+        # each chunked into ceil(m / _BULK_CHUNK) round_dists launches
+        obs.tick("bulk_round_batches_total", n=(rounds + 3) * -(-m // _BULK_CHUNK),
+                 layer=str(layer))
+        obs.tick("bulk_rounds_total", n=rounds, layer=str(layer))
     return pool_ids, pool_d, float(n_scored), float(m * r_exp * rounds), rounds
 
 

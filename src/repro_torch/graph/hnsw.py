@@ -29,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.graph.beam import beam_search, greedy_descent
 from repro_torch.graph.engine import (
     INF,
@@ -123,13 +124,14 @@ def _build_hnsw_bulk(
         if members.size < 2:
             continue
         r = params.r_base if l == 0 else params.r_upper
-        with _timed(dev, seconds, f"bulk_refine_l{l}"):
+        with _timed(dev, seconds, f"bulk_refine_l{l}"), obs.span("build/bulk_refine", layer=l) as sp:
             pool_ids, pool_d, nd, nh, _ = bulk_refine(
                 data, backend, members, r=r, params=params, seed=seed, layer=l,
             )
+            sp.add_cost(nd, nh)
         acct.add_dists(nd, phase=PH_BULK, n_hops=nh)
         adj, adj_d = (adj0, adj0_d) if l == 0 else (adj_up[l - 1], adj_up_d[l - 1])
-        with _timed(dev, seconds, f"bulk_commit_l{l}"):
+        with _timed(dev, seconds, f"bulk_commit_l{l}"), obs.span("build/bulk_commit", layer=l):
             _, _, backend = bulk_commit(
                 engine, adj, adj_d, backend, torch.from_numpy(members).to(dev),
                 pool_ids, pool_d, r=r,
@@ -138,11 +140,12 @@ def _build_hnsw_bulk(
 
     entry = int(np.argmax(levels_np)) if n else 0
     lv = torch.from_numpy(levels_np.astype(np.int32)).to(dev)
-    with _timed(dev, seconds, "repair"):
+    with _timed(dev, seconds, "repair"), obs.span("build/repair") as sp:
         adj0, adj0_d, adj_up, adj_up_d, backend, rd, rh, unreach = repair_reachability(
             data, adj0, adj0_d, adj_up, adj_up_d, backend, lv, entry, params=params,
             seconds=seconds,
         )
+        sp.add_cost(rd, rh)
     acct.add_dists(rd, phase=PH_REPAIR, n_hops=rh)
     index = HNSWIndex(
         adj0=adj0, adj0_d=adj0_d, adj_up=adj_up, adj_up_d=adj_up_d,

@@ -38,6 +38,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.graph import backends as bk
 from repro_torch.graph.engine import (
     BuildEngine,
@@ -139,6 +140,21 @@ _KIND_OF_TYPE: dict[type, str] = {
 }
 
 
+def _record_build(sp, stats: BuildStats | None) -> None:
+    """Fold a finished build's cost into its span and the per-phase
+    ``build_dists_total`` counters (obs-enabled paths only; ``sp`` is the
+    null span otherwise)."""
+    if stats is None or not obs.enabled():
+        return
+    sp.add_cost(stats.n_dists, stats.n_hops)
+    phases = stats.phase_dict()
+    if phases is not None:
+        sp.set(phases=phases)
+        for name, v in phases.items():
+            if v:
+                obs.tick("build_dists_total", n=float(v), phase=name)
+
+
 def _tensor(x, dev, dtype=None) -> torch.Tensor:
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
     return t.to(device=dev, dtype=dtype) if dtype is not None else t.to(dev)
@@ -237,9 +253,12 @@ class AnnIndex:
                 )
             be = backend
             kind = _KIND_OF_TYPE.get(type(backend), "custom")
-        graph, stats = spec.builder(
-            data, be, params, seed, strategy=strategy, seconds=seconds, **algo_kwargs
-        )
+        with obs.span("build", algo=algo, strategy=strategy, backend=kind,
+                      n=int(data.shape[0])) as sp:
+            graph, stats = spec.builder(
+                data, be, params, seed, strategy=strategy, seconds=seconds, **algo_kwargs
+            )
+            _record_build(sp, stats)
         return cls(spec=spec, params=params, graph=graph, data=data, backend_kind=kind,
                    seed=seed, stats=stats, strategy=strategy)
 
@@ -553,11 +572,13 @@ class AnnIndex:
         data_all = torch.cat([self._data, new])
         levels_t = torch.from_numpy(levels_all).to(dev)
 
-        adj0, adj0_d, adj_up, adj_up_d, backend, acct = run_insert_schedule(
-            BuildEngine(params), data_all, adj0, adj0_d, adj_up, adj_up_d,
-            backend, levels_t, ids, ent, mask,
-        )
-        stats = BuildStats(n_dists=acct.n_dists, n_hops=acct.n_hops, phases=list(acct.phases))
+        with obs.span("build/add", algo=self.algo, m=m) as sp:
+            adj0, adj0_d, adj_up, adj_up_d, backend, acct = run_insert_schedule(
+                BuildEngine(params), data_all, adj0, adj0_d, adj_up, adj_up_d,
+                backend, levels_t, ids, ent, mask,
+            )
+            stats = BuildStats(n_dists=acct.n_dists, n_hops=acct.n_hops, phases=list(acct.phases))
+            _record_build(sp, stats)
         self._set_graph(adj0, adj0_d, adj_up, adj_up_d, levels_t,
                         best if self._spec.layered else cur, backend)
         self._data = data_all
@@ -645,11 +666,14 @@ class AnnIndex:
         if aff_ids.size:
             ids, mask = _schedule(aff_ids, params.batch, dev)
             ent = np.full((ids.shape[0],), entry, np.int32)
-            adj0_t, adj0_d_t, adj_up_t, adj_up_d_t, backend, acct = run_insert_schedule(
-                BuildEngine(params), self._data, adj0_t, adj0_d_t, adj_up_t, adj_up_d_t,
-                backend, levels_t, ids, ent, mask,
-            )
-            stats = BuildStats(n_dists=acct.n_dists, n_hops=acct.n_hops, phases=list(acct.phases))
+            with obs.span("build/compact", algo=self.algo, rewired=int(aff_ids.size)) as sp:
+                adj0_t, adj0_d_t, adj_up_t, adj_up_d_t, backend, acct = run_insert_schedule(
+                    BuildEngine(params), self._data, adj0_t, adj0_d_t, adj_up_t, adj_up_d_t,
+                    backend, levels_t, ids, ent, mask,
+                )
+                stats = BuildStats(n_dists=acct.n_dists, n_hops=acct.n_hops,
+                                   phases=list(acct.phases))
+                _record_build(sp, stats)
 
         self._set_graph(adj0_t, adj0_d_t, adj_up_t, adj_up_d_t, levels_t, entry, backend)
         self._retired |= dead

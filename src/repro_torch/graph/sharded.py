@@ -45,6 +45,7 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.kmeans import kmeans_fit
 from repro_torch.graph.engine import BuildParams
 from repro_torch.graph.index import AnnIndex
@@ -391,6 +392,24 @@ def build_segment_task(task: dict) -> dict:
     return metrics
 
 
+def _record_segment_obs(m: dict) -> None:
+    """Re-emit one segment build's metrics into this process's obs registry
+    (a pool worker's spans die with the worker; the dict is the wire
+    format)."""
+    if not obs.enabled():
+        return
+    seg, pid = int(m["seg"]), m.get("pid")
+    with obs.span("shard/segment", segment=seg, worker=pid, n=int(m["n_vectors"])) as sp:
+        sp.add_cost(float(m.get("n_dists") or 0.0))
+        sp.set(wall_s=m.get("wall_s"), phases=m.get("phases"), max_rss_mb=m.get("max_rss_mb"))
+    obs.tick("shard_segments_built_total")
+    obs.tick("shard_segment_vectors_total", n=int(m["n_vectors"]), segment=str(seg),
+             worker=str(pid))
+    for phase, v in (m.get("phases") or {}).items():
+        if v:
+            obs.tick("shard_build_dists_total", n=float(v), phase=phase, segment=str(seg))
+
+
 # ---------------------------------------------------------------------------
 # Parallel fan-out helper
 # ---------------------------------------------------------------------------
@@ -504,17 +523,19 @@ class ShardedBuilder:
                 seen[0] += c.shape[0]
                 yield c
 
-        t0 = time.perf_counter()
-        centroids = bootstrap_centroids(
-            counted, cfg.n_segments, sample_size=cfg.sample_size, seed=cfg.seed,
-            iters=cfg.kmeans_iters, chunk_size=cfg.chunk_size, device=self.device,
-        )
-        t1 = time.perf_counter()
-        plan = stream_assign(
-            source, centroids, os.path.join(self.workdir, "spill"),
-            chunk_size=cfg.chunk_size, balanced=cfg.balanced, n_total=seen[0],
-            device=self.device,
-        )
+        with obs.span("shard/assign", segments=cfg.n_segments, chunk=cfg.chunk_size) as sp:
+            t0 = time.perf_counter()
+            centroids = bootstrap_centroids(
+                counted, cfg.n_segments, sample_size=cfg.sample_size, seed=cfg.seed,
+                iters=cfg.kmeans_iters, chunk_size=cfg.chunk_size, device=self.device,
+            )
+            t1 = time.perf_counter()
+            plan = stream_assign(
+                source, centroids, os.path.join(self.workdir, "spill"),
+                chunk_size=cfg.chunk_size, balanced=cfg.balanced, n_total=seen[0],
+                device=self.device,
+            )
+            sp.set(n=plan.n, seg_sizes=plan.seg_sizes)
         self.assign_seconds = {"bootstrap": t1 - t0, "stream": time.perf_counter() - t1}
         return plan
 
@@ -538,14 +559,21 @@ class ShardedBuilder:
         wall_assign = time.perf_counter() - t0
         if pool and snapshot_path is None:
             snapshot_path = os.path.join(self.workdir, "index")
-        t1 = time.perf_counter()
-        index, metrics = self._build_local(plan, snapshot_path, pool=pool, attach=attach)
-        wall_build = time.perf_counter() - t1
+        n_workers = int(self.workers) if pool else 1
+        with obs.span("shard/build", mode="pool" if pool else "inline", segments=plan.n_segments,
+                      n=plan.n, workers=n_workers) as sp:
+            t1 = time.perf_counter()
+            index, metrics = self._build_local(plan, snapshot_path, pool=pool, attach=attach)
+            wall_build = time.perf_counter() - t1
+            for m in metrics:
+                _record_segment_obs(m)
+            sp.set(wall_build_s=wall_build)
+            sp.add_cost(sum(m.get("n_dists", 0.0) for m in metrics))
         return ShardedBuildResult(
             index=index, plan=plan, mode="pool" if pool else "inline",
             snapshot_path=None if snapshot_path is None else os.path.abspath(snapshot_path),
             segments=metrics, wall_assign_s=wall_assign, wall_build_s=wall_build,
-            n_workers=int(self.workers) if pool else 1,
+            n_workers=n_workers,
         )
 
     # ---- internals ------------------------------------------------------

@@ -24,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.graph.engine import (
     INF,
     PH_BULK,
@@ -125,22 +126,24 @@ def bulk_flat(data, backend, entry: int, *, params: BuildParams, seed: int, seco
     pool_ids = None
     if n >= 2:
         members = np.arange(n, dtype=np.int32)
-        with _timed(dev, seconds, "bulk_refine_l0"):
+        with _timed(dev, seconds, "bulk_refine_l0"), obs.span("build/bulk_refine", layer=0) as sp:
             pool_ids, pool_d, nd, nh, _ = bulk_refine(
                 data, backend, members, r=flat.r_base, params=flat, seed=seed, layer=0,
             )
+            sp.add_cost(nd, nh)
         acct.add_dists(nd, phase=PH_BULK, n_hops=nh)
-        with _timed(dev, seconds, "bulk_commit_l0"):
+        with _timed(dev, seconds, "bulk_commit_l0"), obs.span("build/bulk_commit", layer=0):
             _, _, backend = bulk_commit(
                 engine, adj, adj_d, backend, torch.from_numpy(members).to(dev),
                 pool_ids, pool_d, r=flat.r_base,
             )
         del pool_d
-    with _timed(dev, seconds, "repair"):
+    with _timed(dev, seconds, "repair"), obs.span("build/repair") as sp:
         adj, adj_d, _, _, backend, rd, rh, unreach = repair_reachability(
             data, adj, adj_d, adj_up, adj_up_d, backend, levels, entry, params=flat,
             seconds=seconds,
         )
+        sp.add_cost(rd, rh)
     acct.add_dists(rd, phase=PH_REPAIR, n_hops=rh)
     index = FlatIndex(adj=adj, adj_d=adj_d, entry=entry, backend=backend)
     stats = BuildStats(n_dists=acct.n_dists, n_hops=acct.n_hops, phases=list(acct.phases),

@@ -33,6 +33,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.graph.index import AnnIndex
 from repro_torch.graph.segmented import SegmentedAnnIndex
 from repro_torch.testing import faults
@@ -55,8 +56,6 @@ P_AFTER_PUBLISH = faults.declare("snapshot/after_publish")
 #: bitrot injection: one array's stored bytes flip after its CRC is taken.
 P_BITFLIP_ARRAY = faults.declare("snapshot/bitflip_array", kind="inject")
 
-#: plain counters (the reference ticks its metrics registry here)
-counters: dict[str, int] = {"snapshot_quarantined_segments_total": 0}
 
 
 def segment_dir(path: str, s: int) -> str:
@@ -261,7 +260,7 @@ def load_index(path: str, *, verify: bool = True, quarantine: bool = False,
             except (OSError, ValueError, KeyError, zipfile.BadZipFile):
                 if not quarantine:
                     raise
-                counters["snapshot_quarantined_segments_total"] += 1
+                obs.tick("snapshot_quarantined_segments_total")
                 segments.append(None)  # SegmentedAnnIndex.restore quarantines it
                 continue
             segments.append((seg_manifest["meta"], seg_arrays))

@@ -548,3 +548,97 @@ def test_cuda_baseline_builds_equal_the_cpu_builds(cuda_device, kind):
             assert torch.equal(idx["card"].search(q, k=8, ef=32).ids.cpu(), idx["cpu"].search(q, k=8, ef=32).ids)
     for name in ("flash_round", "flash_beam", "flash_scan_blocked"):
         assert tops.launches[name] == before[name], name
+
+
+def _serving_pair(cuda_device):
+    """A flash_blocked index over integer rows (exact rerank distances) built
+    on the CPU and restored on the card, its queries, and its fresh rows."""
+    from repro_torch.graph.engine import BuildParams
+    from repro_torch.index import AnnIndex
+
+    x = np.random.default_rng(8).integers(-8, 9, (2128, 32)).astype(np.float32)
+    cpu = AnnIndex.build(x[:2000], params=BuildParams(r_upper=8, r_base=16, ef=32, batch=16, max_layers=3),
+                         backend_kwargs=dict(d_f=32, m_f=16, l_f=4, h=8, kmeans_iters=8),
+                         strategy="incremental", device="cpu")
+    card = AnnIndex.restore(*cpu.export_state(), device=cuda_device)
+    queries, extra = x[2000:2064], x[2064:]
+    mismatch = int((card.backend.prepare_query(torch.from_numpy(queries).to(cuda_device)).adt_q.cpu()
+                    != cpu.backend.prepare_query(torch.from_numpy(queries)).adt_q).sum())
+    assert mismatch == 0, f"{mismatch} query-table levels differ between the devices"
+    return cpu, card, queries, extra
+
+
+@pytest.mark.cuda
+def test_cuda_engine_and_runtime_equal_the_cpu(cuda_device):
+    """The engine on the card returns the CPU engine's ids, distances and
+    counts (one flash_beam launch per padded dispatch); a Runtime on the
+    card serves the same rows from client threads, and its add / delete
+    flips publish the CPU handle's states."""
+    import threading
+
+    from repro_torch import serve
+
+    cpu, card, queries, extra = _serving_pair(cuda_device)
+    e_cpu = serve.SearchEngine(cpu, k=10, ef=64).warmup()
+    e_card = serve.SearchEngine(card, k=10, ef=64).warmup()
+    assert e_card.n_compiles == e_cpu.n_compiles == 3
+    off = 0
+    for b in (1, 3, 8, 17, 32, 45):
+        before = tops.launches["flash_beam"]
+        got, want = e_card.search(queries[off:off + b]), e_cpu.search(queries[off:off + b])
+        assert tops.launches["flash_beam"] - before == (2 if b > 32 else 1)
+        assert torch.equal(got.ids.cpu(), want.ids) and torch.equal(got.dists.cpu(), want.dists)
+        assert (got.n_dists, got.n_scan, got.n_rerank) == (want.n_dists, want.n_scan, want.n_rerank)
+        off = (off + b) % 16
+    assert e_card.n_compiles == 3
+    direct = e_cpu.search(queries[:32], record=False).ids.numpy()
+    handle = serve.IndexHandle(cpu)
+    with serve.Runtime(card, k=10, ef=64, max_wait_ms=2.0) as rt:
+        rt.warmup()
+        out = [None] * 32
+
+        def client(rows):
+            for i in rows:
+                out[i] = rt.submit(queries[i]).result(timeout=60).ids
+
+        threads = [threading.Thread(target=client, args=(range(t, 32, 4),)) for t in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        np.testing.assert_array_equal(np.stack(out), direct)
+        rt.add(extra).result(timeout=120)
+        handle.add(extra)
+        rt.delete(np.arange(0, 2000, 7)).result(timeout=120)
+        handle.delete(np.arange(0, 2000, 7))
+        st_card, st_cpu = rt.handle.current.index.export_state()[1], handle.current.index.export_state()[1]
+        for key, arr in st_cpu.items():
+            np.testing.assert_array_equal(st_card[key], arr, err_msg=key)
+        res = rt.search(queries[5], 60)
+        assert not np.isin(res.ids, np.arange(0, 2000, 7)).any()
+        stats = rt.stats()
+    assert stats["cold_dispatches"] == 0 and stats["thread_restarts"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_recover_equals_the_cpu_recover(cuda_device, tmp_path):
+    """One durable root (a WAL add and delete over a snapshot) recovered on
+    the card and on the CPU: the same graph, mirror, tombstones and ids."""
+    from repro_torch.serve import recovery
+
+    cpu, _, queries, extra = _serving_pair(cuda_device)
+    root = recovery.init(str(tmp_path / "root"), cpu)
+    handle, _, _ = recovery.attach(root, background=False, fsync="batch", device="cpu")
+    try:
+        handle.add(extra)
+        handle.delete(np.arange(3, 2000, 11))
+    finally:
+        handle.wal.close()
+    on_card, on_cpu = recovery.recover(root, device=cuda_device), recovery.recover(root, device="cpu")
+    assert on_card.index.device.type == "cuda" and on_card.replayed == on_cpu.replayed == 2
+    st_card, st_cpu = on_card.index.export_state()[1], on_cpu.index.export_state()[1]
+    for key, arr in st_cpu.items():
+        np.testing.assert_array_equal(st_card[key], arr, err_msg=key)
+    a = on_card.index.search(queries, k=10, ef=64)
+    b = on_cpu.index.search(queries, k=10, ef=64)
+    assert torch.equal(a.ids.cpu(), b.ids) and torch.equal(a.dists.cpu(), b.dists)

@@ -35,6 +35,7 @@ from repro.serve import snapshot as jsnap
 from repro_torch.graph.engine import BuildParams
 from repro_torch.graph.sharded import model_parallel_wall
 from repro_torch.index import AnnIndex, SegmentedAnnIndex, ShardConfig, ShardedBuilder
+from repro_torch import obs as tobs
 from repro_torch.serve import snapshot as snap
 from repro_torch.testing import faults
 from conftest import make_clustered
@@ -239,9 +240,14 @@ def test_corrupt_segment_quarantines(sets, tmp_path):
     _flip_file(os.path.join(snap.segment_dir(path, 1), "arrays.npz"))
     with pytest.raises((OSError, ValueError, KeyError, zipfile.BadZipFile)):
         snap.load_index(path, device="cpu")
-    before = snap.counters["snapshot_quarantined_segments_total"]
-    deg = snap.load_index(path, quarantine=True, device="cpu")
-    assert snap.counters["snapshot_quarantined_segments_total"] == before + 1
+    quarantined = tobs.counter("snapshot_quarantined_segments_total")
+    before = quarantined.value
+    tobs.enable()
+    try:
+        deg = snap.load_index(path, quarantine=True, device="cpu")
+    finally:
+        tobs.disable()
+    assert quarantined.value == before + 1
     h = deg.health()
     assert h["degraded"] and h["quarantined"] == [1] and h["lost_ids"] == N // 3
     lost = set(coll.global_ids(1).tolist())
