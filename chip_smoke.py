@@ -168,13 +168,36 @@ non-zero and no result line is printed):
             ``flash_scan`` must equal its plain version
             over the catalog, and the card's ``score_flash`` ids the CPU
             path's on 8 queries whose query tables agree.
+12. training  BERT4Rec training (``repro_torch.train``). (a) The train
+            step (``make_train_step``, 2 microbatches) at the reduced config
+            on the card against the CPU from one set of parameters and the
+            same 3 batches, once per compression (none, bf16, int8_ef):
+            loss and lr at rtol 1e-5, grad_norm at rtol 1e-4, every state
+            element within atol/rtol 1e-4 except at most 1 in 10,000, each
+            within 2·steps·lr. (b) ``train`` at the full config for 30
+            steps of 64 sessions (8 microbatches of 8; AdamW lr 3e-3,
+            constant), batches from ``sharded_batches`` seeded by (seed,
+            step), a checkpoint every 10 steps, keep 2: s per step (median
+            of steps 6–30), sessions and masked positions per second, peak
+            memory, the loss at steps 1 and 30 (it must fall), checkpoint
+            bytes and save / restore s, and the card's busy share over 2
+            steps under the profiler. (c) The step-20 checkpoint restored
+            into a fresh state and trained to step 30: the history continues
+            at step 21 and the state equals (b)'s by (a)'s rule. (d) The
+            step-30 checkpoint restored into a fresh ``Bert4Rec``; 64
+            sessions ending in [MASK] through ``serve``; a Flash coder
+            (d_f = 48, M = 16) on the trained table; ``score_flash`` (k =
+            10, rerank 8) with one ``flash_scan`` launch per query and the
+            CPU path's ids on 8 queries whose query tables agree; recall@10
+            against ``score_dense``.
 
 Launch counts are zeroed just before each path (the main path: phases 3–4;
 the incremental path and the bulk build beside it: phase 6, each counted
 apart, the profiler window in neither; the snapshot path: phase 7; the
 serving path: phases 7d and 10b, each counted, then summed; the
 baselines and generality paths: phases 7b and 7c; the scale-out path:
-phases 8–10; the retrieval path: phase 11) and read just after it;
+phases 8–10; the retrieval path: phase 11; the training path: phase 12
+(b)–(d)) and read just after it;
 the script fails if a kernel of a path never launched there. The main
 path's M = 16 coder must read its mirror as 8-byte words on every launch
 (``launches["mirror_*"]``). ``sq_l2`` and ``flash_expand`` are on no path:
@@ -1870,6 +1893,262 @@ def retrieval_path(dev, t_start: float) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The training path (phase 12)
+# ---------------------------------------------------------------------------
+
+#: the train step's settings: the reference's recsys test's (tests/test_recsys.py:107-108)
+TRAIN_OPT = dict(lr=3e-3, warmup_steps=0, schedule="constant")
+TRAIN_STEPS = 30
+TRAIN_SESSIONS = 64  # sessions per step on one card: train_batch's 65,536 is a pod's global batch (PERF.md §4)
+TRAIN_MICROBATCHES = 8
+TRAIN_SEED = 0
+
+
+def noise_count(got, want, *, lr: float, steps: int, what: str) -> int:
+    """Elements of ``got`` beyond atol/rtol 1e-4 of ``want``; every element
+    must lie within 2·steps·lr of it (AdamW moves a parameter whose
+    gradient is float noise by ±lr a step, whichever sign the noise has).
+    Returns the count, which the caller holds to 1 in 10,000."""
+    got, want = got.double().cpu(), want.double().cpu()
+    diff = (got - want).abs()
+    if not bool((diff <= 2 * steps * lr + 1e-4).all()):
+        raise AssertionError(f"{what}: {float(diff.max())} apart, beyond 2·steps·lr")
+    return int((diff > 1e-4 + 1e-4 * want.abs()).sum())
+
+
+def train_card_vs_cpu(dev) -> dict:
+    """Phase 12 (a): ``make_train_step`` at the reduced config on the card
+    and on the CPU from one set of numpy parameters and the same 3 batches,
+    2 microbatches, once per compression. Loss and lr must agree at rtol
+    1e-5 and grad_norm at rtol 1e-4; every parameter, moment and residual
+    within atol/rtol 1e-4 except at most 1 in 10,000 elements, each within
+    2·steps·lr (float32 sums in another order; ``noise_count``)."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.recsys import bert4rec as b4r
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+    from repro_torch.utils import tree_map, tree_paths, tree_size
+
+    cfg = get_arch("bert4rec").make_reduced()
+    gen = torch.Generator()
+    gen.manual_seed(TRAIN_SEED)
+    params_np = b4r.params_to_jax(b4r.Bert4Rec(cfg, gen, device="cpu"))
+    rng = np.random.default_rng([TRAIN_SEED, 1])
+    batches = []
+    for _ in range(3):
+        items = rng.integers(0, cfg.n_items, (8, cfg.seq_len)).astype(np.int32)
+        mask = rng.random((8, cfg.seq_len)) < cfg.mask_prob
+        mask[:, -1] = True
+        batches.append({"items": items.reshape(2, 4, -1), "mask_positions": mask.reshape(2, 4, -1)})
+
+    def loss_fn(p, batch):
+        return b4r.bert4rec_loss(p, cfg, batch["items"], batch["mask_positions"]), {}
+
+    out = {}
+    for compression in ("none", "bf16", "int8_ef"):
+        tc = tl.TrainConfig(opt=opt.AdamWConfig(**TRAIN_OPT), microbatches=2, compression=compression)
+        step = tl.make_train_step(loss_fn, tc)
+        trees, metrics = {}, {}
+        for device in (str(dev), "cpu"):
+            tree = tl.init_train_state(tree_map(lambda a, d=device: torch.from_numpy(a).to(d), params_np), tc).tree()
+            ms = []
+            for b in batches:
+                tree, m = step(tree, {k: torch.from_numpy(v).to(device) for k, v in b.items()})
+                ms.append({k: float(v) for k, v in m.items()})
+            trees[device], metrics[device] = tree, ms
+        for mc, mp in zip(metrics[str(dev)], metrics["cpu"]):
+            for k in mp:
+                rtol = 1e-4 if k == "grad_norm" else 1e-5
+                if not np.isclose(mc[k], mp[k], rtol=rtol, atol=0.0):
+                    raise AssertionError(f"train step {compression}: {k} {mc[k]} on the card, {mp[k]} on the CPU")
+        noise, worst = 0, 0.0
+        for (path, a), b in zip(tree_paths(trees[str(dev)]), [leaf for _, leaf in tree_paths(trees["cpu"])]):
+            noise += noise_count(a.float(), b.float(), lr=TRAIN_OPT["lr"], steps=len(batches), what=path)
+            worst = max(worst, float((a.float().cpu() - b.float()).abs().max()))
+        size = tree_size(trees["cpu"])
+        if noise > size // 10_000:
+            raise AssertionError(f"train step {compression}: {noise} of {size} elements differ card vs CPU")
+        out[compression] = {"loss": [m["loss"] for m in metrics[str(dev)]],
+                            "cpu_loss": [m["loss"] for m in metrics["cpu"]],
+                            "elements_beyond_1e-4": noise, "elements": size, "max_abs_diff": worst}
+    return out
+
+
+def training_path(dev, t_start: float) -> dict:
+    """Phase 12: BERT4Rec training on the card. (a) the train step card
+    against CPU at the reduced config (``train_card_vs_cpu``); (b) ``train``
+    at the full config for 30 steps of 64 sessions (8 microbatches of 8),
+    checkpoints every 10, keep 2; (c) the step-20 checkpoint resumed to step
+    30; (d) the step-30 checkpoint served through ``score_flash``. Returns
+    the path's kernel launches ((b)–(d))."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import flash as fl
+    from repro_torch.data.pipeline import microbatch_reshape, sharded_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models.recsys import bert4rec as b4r
+    from repro_torch.models.recsys import retrieval as rt
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+    from repro_torch.utils import sync, tree_bytes, tree_leaves, tree_paths
+
+    t_phase = time.perf_counter()
+    out = {"card_vs_cpu_reduced": train_card_vs_cpu(dev)}
+    out["card_vs_cpu_s"] = time.perf_counter() - t_phase
+
+    cfg = get_arch("bert4rec").make_full()
+    n = cfg.n_items
+    ckdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_train")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tc = tl.TrainConfig(opt=opt.AdamWConfig(**TRAIN_OPT), microbatches=TRAIN_MICROBATCHES,
+                        checkpoint_every=10, keep_checkpoints=2, log_every=1)
+    masked = {}
+
+    def make_batch(step: int, shard: int) -> dict:
+        """The step's 64 sessions, drawn on the card from a generator seeded
+        by (seed, step): a resumed run replays the same data."""
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(TRAIN_SEED * 1_000_003 + step * 101 + shard)
+        items, mask = b4r.sample_training_batch(gen, cfg, TRAIN_SESSIONS)
+        masked[step] = int(mask.sum())
+        return microbatch_reshape({"items": items, "mask_positions": mask}, TRAIN_MICROBATCHES)
+
+    def loss_fn(p, batch):
+        return b4r.bert4rec_loss(p, cfg, batch["items"], batch["mask_positions"]), {}
+
+    def fresh_params():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(TRAIN_SEED)
+        return b4r.params_tree(b4r.Bert4Rec(cfg, gen, device=dev))
+
+    try:
+        # (b) train at full width
+        params = fresh_params()
+        out["params_gb"] = tree_bytes(params) / 1e9
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        sync(dev)
+        t0 = time.perf_counter()
+        state, hist = tl.train(loss_fn, params, sharded_batches(make_batch, shard_id=0), tc=tc,
+                               n_steps=TRAIN_STEPS, ckpt_dir=ckdir, log_fn=lambda _: None)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        step_s = [1.0 / h["steps_per_s"] for h in hist]
+        med = float(np.median(step_s[5:]))
+        per_step_masked = float(np.mean([masked[s] for s in range(TRAIN_STEPS)]))
+        losses = [h["loss"] for h in hist]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"training: the loss did not fall ({losses[0]} at step 1, {losses[-1]} at 30)")
+        out["train"] = {
+            "steps": TRAIN_STEPS, "sessions_per_step": TRAIN_SESSIONS, "microbatches": TRAIN_MICROBATCHES,
+            "wall_s": wall, "s_per_step_median_6_30": med, "s_per_step": step_s,
+            "sessions_per_s": TRAIN_SESSIONS / med, "masked_per_s": per_step_masked / med,
+            "masked_per_step": per_step_masked, "loss_step1": losses[0], "loss_step30": losses[-1],
+            "grad_norm_step30": hist[-1]["grad_norm"], "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "checkpoints": ck.list_checkpoints(ckdir)}
+        if ck.list_checkpoints(ckdir) != [20, 30]:
+            raise AssertionError(f"training kept checkpoints {ck.list_checkpoints(ckdir)}, not [20, 30]")
+        final = state.tree()
+        # checkpoint cost: one more save of the final state, and its restore
+        ckbench = os.path.join(ckdir, "bench")
+        sync(dev)
+        t0 = time.perf_counter()
+        path = ck.save_checkpoint(ckbench, TRAIN_STEPS, final)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t0 = time.perf_counter()
+        back, _ = ck.restore_checkpoint(ckbench, final)
+        sync(dev)
+        restore_s = time.perf_counter() - t0
+        if not all(torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(final))):
+            raise AssertionError("training: a restored checkpoint differs from the state it saved")
+        del back
+        shutil.rmtree(ckbench)
+        out["checkpoint"] = {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s}
+
+        # (c) resume the step-20 checkpoint into a fresh state, to step 30
+        t0 = time.perf_counter()
+        rdir = os.path.join(ckdir, "resume")
+        shutil.copytree(os.path.join(ckdir, f"step_{20:010d}"), os.path.join(rdir, f"step_{20:010d}"))
+        logs = []
+        resumed, rhist = tl.train(loss_fn, fresh_params(), sharded_batches(make_batch, shard_id=0, start_step=20),
+                                  tc=tc, n_steps=TRAIN_STEPS, ckpt_dir=rdir, log_fn=logs.append)
+        if logs[:1] != ["[train] resumed from step 20"] or [h["step"] for h in rhist] != list(range(21, 31)):
+            raise AssertionError(f"resume: {logs[:1]}, steps {[h['step'] for h in rhist]}")
+        noise, equal, worst = 0, 0, 0.0
+        for (path_, a), b in zip(tree_paths(resumed.tree()), tree_leaves(final)):
+            noise += noise_count(a.float(), b.float(), lr=TRAIN_OPT["lr"], steps=10, what=path_)
+            equal += int(torch.equal(a, b))
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+        size = sum(t.numel() for t in tree_leaves(final))
+        if noise > size // 10_000:
+            raise AssertionError(f"resume: {noise} of {size} elements differ from the uninterrupted run")
+        out["resume"] = {"from_step": 20, "loss_step30": rhist[-1]["loss"],
+                         "loss_step30_uninterrupted": losses[-1], "leaves_bit_equal": equal,
+                         "leaves": len(tree_leaves(final)), "elements_beyond_1e-4": noise,
+                         "max_abs_diff": worst, "resume_s": time.perf_counter() - t0}
+        shutil.rmtree(rdir)
+        del resumed
+
+        # the card's busy share over two train steps (not the path: the
+        # launch counts were read in (d); these steps' results are dropped)
+        step_fn = tl.make_train_step(loss_fn, tc)
+        wb = [make_batch(TRAIN_STEPS + i, 0) for i in range(2)]
+        t0 = time.perf_counter()
+        out["profile_2_steps"] = device_window(lambda: [step_fn(final, b) for b in wb], cpu=False)
+        out["profile_2_steps"]["profile_s"] = time.perf_counter() - t0
+        del state, final, params
+
+        # (d) serve from the step-30 checkpoint
+        t0 = time.perf_counter()
+        like = {"params": fresh_params()}
+        restored, step = ck.restore_checkpoint(ckdir, like)
+        model = b4r.params_from_jax(restored["params"], cfg, device=dev)
+        del like, restored
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(TRAIN_SEED + 1)
+        items, _ = b4r.sample_training_batch(gen, cfg, REQUESTS)
+        items[:, -1] = cfg.mask_id
+        q = model.serve(items)
+        table = model.item_embed.detach()[:n]
+        coder = fl.fit_flash(table, d_f=48, m_f=16, kmeans_iters=10, device=dev)
+        codes = fl.encode(coder, table)
+        sync(dev)
+        before = ops.launches["flash_scan"]
+        res = rt.score_flash(q, coder, codes, table, k=10, rerank=8)
+        sync(dev)
+        per_query = (ops.launches["flash_scan"] - before) / REQUESTS
+        launches = dict(ops.launches)
+        exact = rt.score_dense(q, table, k=10)
+        if (step != TRAIN_STEPS or tuple(res.ids.shape) != (REQUESTS, 10) or not bool(torch.isfinite(res.scores).all())
+                or not bool(((res.ids >= 0) & (res.ids < n)).all())):
+            raise AssertionError("serving the trained checkpoint: malformed result")
+        if per_query != 1:
+            raise AssertionError(f"score_flash launched flash_scan {per_query} times a query, not once")
+        # the CPU path from the same coder and codes on 8 queries
+        cpu_coder = coder._replace(**{f: getattr(coder, f).cpu() for f in coder._fields})
+        q8 = q[:8]
+        levels_differ = (fl.query_ctx(coder, q8).adt_q.cpu() != fl.query_ctx(cpu_coder, q8.cpu()).adt_q).flatten(1).any(1)
+        cpu_ids = rt.score_flash(q8.cpu(), cpu_coder, codes.cpu(), table.cpu(), k=10, rerank=8).ids
+        same = (res.ids[:8].cpu() == cpu_ids).all(1)
+        if not bool(same[~levels_differ].all()):
+            raise AssertionError("serving the trained checkpoint: the card's ids differ from the CPU path's")
+        out["serve"] = {"restored_step": step, "requests": REQUESTS, "serve_and_coder_s": time.perf_counter() - t0,
+                        "flash_scan_per_query": per_query, "recall@10_vs_dense": rt.retrieval_recall(res, exact, 10),
+                        "card_equals_cpu_queries": int(same.sum()), "adt_level_mismatch_queries": int(levels_differ.sum()),
+                        "query_norm_mean": float(q.norm(dim=1).mean())}
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    emit({"phase": "training", **out, "launches": launches, "phase_s": time.perf_counter() - t_phase,
+          "elapsed_s": time.perf_counter() - t_start})
+    return launches
+
+
 def check_repaired_limits(dev, g) -> dict:
     """Phase 2's shapes that raised before the limits were repaired, each
     held bit for bit against its plain version: an (M, K) = (64, 256) int32
@@ -2539,6 +2818,9 @@ def main() -> int:
     # ---- 11. the retrieval path ------------------------------------------------
     retrieval_launches = retrieval_path(dev, t_start)
 
+    # ---- 12. the training path, then serving from its checkpoint -------------
+    train_launches = training_path(dev, t_start)
+
     rows = []
     for name, key in (("flash_round", "flash_round"), ("flash_expand", "flash_expand_w4"),
                       ("flash_beam", "flash_beam_ef64_w1"),
@@ -2548,7 +2830,7 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
                      "launches": (launches[name] + inc_launches[name] + bulk_launches[name] + snap_launches[name]
                                   + scale_launches[name] + retrieval_launches[name] + base_launches[name]
-                                  + gen_launches[name] + serve_launches[name]),
+                                  + gen_launches[name] + serve_launches[name] + train_launches[name]),
                      "max_abs_err": kr["max_abs_err"], "ms": kr["ms"],
                      "plain_ms": kr["plain_ms"], "bound_ms": kr["bound_ms"], "bound_by": kr["bound_by"],
                      "library_ms": kr["library_ms"], "shape": kr["shape"]})
@@ -2580,6 +2862,8 @@ def main() -> int:
                                            "baselines": base_launches[name], "generality": gen_launches[name],
                                            "serving": serve_launches[name]}
             rows[-1]["table_64k"] = kern["limits"]["table_64k"]
+        if name == "flash_scan":
+            rows[-1]["launches_by_use"] = {"retrieval": retrieval_launches[name], "training": train_launches[name]}
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

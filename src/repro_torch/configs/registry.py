@@ -2,9 +2,11 @@
 
 Only the recsys model is ported: ``bert4rec`` with its full and reduced
 configs and its assigned input shapes (the reference's
-``configs/registry.py``). Every other architecture of the reference
-raises ``NotImplementedError`` until the model zoo is ported (ROADMAP
-queue 1, item 9).
+``configs/registry.py``), for serving and for training
+(``repro_torch.train``). ``train_batch``'s 65,536 sessions are the
+reference's global batch; one card takes a cut of it per step. Every other
+architecture of the reference raises ``NotImplementedError`` until the
+model zoo is ported (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations

@@ -13,7 +13,12 @@ Unlike the reference, :func:`query_ctx` and :func:`encode` take a leading
 batch axis (the reference ``vmap``s them). The formulas and their op order
 are the reference's; float matmuls may still sum in another order, so an ADT
 level or a near-tie codeword can differ by one in rare entries (measured in
-``tests/test_torch_core.py``).
+``tests/test_torch_core.py``). :func:`query_ctx` computes its float table in
+float64 and rounds it to float32 once: a float32 product's rounding depends
+on the kernel the library picks for its shape (on the H100 a 32-row batch
+summed otherwise than the same rows in a batch of 4,000), so the card's
+insert batches could quantize an entry one level off the CPU's. In float64
+every device and batch size rounds to the same float32 table.
 """
 
 from __future__ import annotations
@@ -186,9 +191,9 @@ def query_ctx(coder: FlashCoder, q: torch.Tensor) -> FlashQueryCtx:
 
     The argmin over an ADT row is the codeword (paper Remark 2).
     """
-    z = (q - coder.mean) @ coder.rot  # (Q, d_pad)
+    z = (q - coder.mean).double() @ coder.rot.double()  # (Q, d_pad), float64: see the module doc
     subs = _split_subspaces(z, coder.m_f, coder.ds).contiguous()  # (M, Q, ds)
-    adt_f = _partial_dists(subs, coder.codebooks).permute(1, 0, 2).contiguous()
+    adt_f = _partial_dists(subs, coder.codebooks.double()).permute(1, 0, 2).to(torch.float32).contiguous()
     adt_q = qz.quantize_table(coder.table_quant, adt_f)
     codes = first_argmin(adt_f, -1).to(torch.int32)
     return FlashQueryCtx(adt_q=adt_q, adt_f=adt_f, codes=codes)

@@ -5,7 +5,10 @@ with QKV bias and the SwiGLU MLP module.
 Weights keep the reference's layout: a dense weight is (in, out) and is
 applied as ``x @ W`` (``nn.Linear`` would store (out, in)), so the
 reference's parameter tree carries across as a plain copy. Initialisation
-draws from an explicit ``torch.Generator`` on the parameters' device.
+draws from an explicit ``torch.Generator`` on the parameters' device. The
+forwards are also functions of a parameter dict (``gqa_forward``,
+``mlp_forward``, the reference's names), which the modules call with their
+own parameters and training calls with a tree that carries gradients.
 ``rms_norm``, the prefill and decode forms and MLA are not ported yet
 (ROADMAP queue 1, item 9).
 """
@@ -86,15 +89,27 @@ class GQAAttention(nn.Module):
         self.bk = nn.Parameter(torch.zeros(n_kv * head_dim, device=device))
         self.bv = nn.Parameter(torch.zeros(n_kv * head_dim, device=device))
 
+    def params(self) -> dict[str, torch.Tensor]:
+        return {k: getattr(self, k) for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")}
+
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *, causal: bool = True) -> torch.Tensor:
         """x (B, S, D), positions (B, S) -> (B, S, D); RoPE with θ = 10,000."""
-        b, s, _ = x.shape
-        q, k, v = x @ self.wq + self.bq, x @ self.wk + self.bk, x @ self.wv + self.bv
-        q = apply_rope(q.reshape(b, s, self.n_heads, self.head_dim), positions)
-        k = apply_rope(k.reshape(b, s, self.n_kv, self.head_dim), positions)
-        v = v.reshape(b, s, self.n_kv, self.head_dim)
-        out = attend(q, k, v, causal=causal)
-        return out.reshape(b, s, self.n_heads * self.head_dim) @ self.wo
+        return gqa_forward(self.params(), x, positions, n_heads=self.n_heads, n_kv=self.n_kv,
+                           head_dim=self.head_dim, causal=causal)
+
+
+def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
+                causal: bool = True) -> torch.Tensor:
+    """Grouped-query attention with QKV bias over the weights ``p`` (``wq``,
+    ``wk``, ``wv``, ``wo``, ``bq``, ``bk``, ``bv``): x (B, S, D), positions
+    (B, S) -> (B, S, D); RoPE with θ = 10,000."""
+    b, s, _ = x.shape
+    q, k, v = x @ p["wq"] + p["bq"], x @ p["wk"] + p["bk"], x @ p["wv"] + p["bv"]
+    q = apply_rope(q.reshape(b, s, n_heads, head_dim), positions)
+    k = apply_rope(k.reshape(b, s, n_kv, head_dim), positions)
+    v = v.reshape(b, s, n_kv, head_dim)
+    out = attend(q, k, v, causal=causal)
+    return out.reshape(b, s, n_heads * head_dim) @ p["wo"]
 
 
 class SwiGLU(nn.Module):
@@ -107,5 +122,13 @@ class SwiGLU(nn.Module):
         self.wu = nn.Parameter(dense_init(gen, (d_model, d_ff), device))
         self.wd = nn.Parameter(dense_init(gen, (d_ff, d_model), device))
 
+    def params(self) -> dict[str, torch.Tensor]:
+        return {"wg": self.wg, "wu": self.wu, "wd": self.wd}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (torch.nn.functional.silu(x @ self.wg) * (x @ self.wu)) @ self.wd
+        return mlp_forward(self.params(), x)
+
+
+def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """``(silu(x @ wg) * (x @ wu)) @ wd`` over the weights ``p``."""
+    return (torch.nn.functional.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]

@@ -1,1 +1,2 @@
-"""BERT4Rec and the candidate-retrieval scorers that serve it."""
+"""BERT4Rec (serving and its cloze loss), the candidate-retrieval scorers
+that serve it, and the sparse embedding ops."""

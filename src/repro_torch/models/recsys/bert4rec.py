@@ -1,12 +1,15 @@
 """BERT4Rec — bidirectional transformer over item sequences
 (arXiv:1904.06690), in PyTorch.
 
-Serving scores the next item at a session's final (mask) position against
-the item-embedding table (weights tied). ``Bert4Rec.serve`` gives the (B, D)
-query vectors that ``models/recsys/retrieval.py`` scores against the
-catalog. The reference's parameter tree carries across with
-:func:`params_from_jax`. Training (the cloze loss and the optimizer) is not
-ported yet (ROADMAP queue 1, item 9).
+Cloze training: random positions are masked and the model predicts the
+masked item from both directions (:func:`bert4rec_loss`, a function of the
+reference's parameter tree that carries gradients; ``repro_torch.train``
+runs the optimizer). Serving scores the next item at a session's final
+(mask) position against the item-embedding table (weights tied).
+``Bert4Rec.serve`` gives the (B, D) query vectors that
+``models/recsys/retrieval.py`` scores against the catalog. The module and
+the tree carry across both ways with :func:`params_from_jax` and
+:func:`params_to_jax`; both forwards run :func:`block_forward`.
 """
 
 from __future__ import annotations
@@ -18,7 +21,11 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
-from repro_torch.utils import resolve_device
+from repro_torch.utils import resolve_device, to_numpy, tree_map
+
+#: parameter names outside ``attn``/``mlp``, as the reference's ``init_bert4rec`` lays them out
+_BLOCK_NORMS = ("ln1", "ln1b", "ln2", "ln2b")
+_TOP = ("item_embed", "pos_embed", "ln_f", "ln_fb", "out_bias")
 
 
 @dataclass(frozen=True)
@@ -54,11 +61,56 @@ class Block(nn.Module):
         self.ln2 = nn.Parameter(torch.ones(d, device=device))
         self.ln2b = nn.Parameter(torch.zeros(d, device=device))
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        h = L.layer_norm(x, self.ln1, self.ln1b)
-        x = x + self.attn(h, positions, causal=False)
-        h = L.layer_norm(x, self.ln2, self.ln2b)
-        return x + self.mlp(h)
+    def params(self) -> dict:
+        """The block's parameters as the reference's per-block tree."""
+        return {"attn": self.attn.params(), "mlp": self.mlp.params(),
+                **{k: getattr(self, k) for k in _BLOCK_NORMS}}
+
+
+def block_forward(blk: dict, cfg: Bert4RecConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """One pre-norm encoder block over the per-block tree ``blk``."""
+    h = L.layer_norm(x, blk["ln1"], blk["ln1b"])
+    x = x + L.gqa_forward(blk["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_heads,
+                          head_dim=cfg.head_dim, causal=False)
+    h = L.layer_norm(x, blk["ln2"], blk["ln2b"])
+    return x + L.mlp_forward(blk["mlp"], h)
+
+
+def _encode(p: dict, blocks, cfg: Bert4RecConfig, items: torch.Tensor) -> torch.Tensor:
+    """items (B, S) int -> hidden (B, S, D) over the top-level parameters
+    ``p`` and the per-block trees ``blocks``; items move to the table's
+    device."""
+    items = torch.as_tensor(items).to(p["item_embed"].device).long()
+    b, s = items.shape
+    x = (p["item_embed"][items] + p["pos_embed"][None, :s]).to(cfg.dtype)
+    positions = torch.arange(s, device=items.device).expand(b, s)
+    for blk in blocks:
+        x = block_forward(blk, cfg, x, positions)
+    return L.layer_norm(x, p["ln_f"], p["ln_fb"])
+
+
+def bert4rec_encode(p: dict, cfg: Bert4RecConfig, items: torch.Tensor) -> torch.Tensor:
+    """items (B, S) -> hidden (B, S, D) over the reference's parameter tree
+    (blocks stacked on a leading ``n_blocks`` axis); carries gradients."""
+    blocks = [tree_map(lambda t, i=i: t[i], p["blocks"]) for i in range(cfg.n_blocks)]
+    return _encode(p, blocks, cfg, items)
+
+
+def bert4rec_loss(p: dict, cfg: Bert4RecConfig, items: torch.Tensor, mask_positions: torch.Tensor) -> torch.Tensor:
+    """Cloze loss over the parameter tree ``p``: items (B, S); the positions
+    where ``mask_positions`` (B, S) is set are replaced with [MASK], and the
+    mean negative log-likelihood of their original ids under the tied
+    softmax over every item (and [MASK]) is returned, a 0-dim float32."""
+    dev = p["item_embed"].device
+    items = torch.as_tensor(items).to(dev).long()
+    mask_positions = torch.as_tensor(mask_positions).to(dev)
+    masked = torch.where(mask_positions, cfg.mask_id, items)
+    h = bert4rec_encode(p, cfg, masked)  # (B, S, D)
+    logits = h.to(torch.float32) @ p["item_embed"].T + p["out_bias"]  # (B, S, V+1)
+    lp = torch.log_softmax(logits, dim=-1)
+    ll = lp.gather(-1, items[..., None])[..., 0]
+    m = mask_positions.to(torch.float32)
+    return -torch.sum(ll * m) / torch.clamp_min(torch.sum(m), 1.0)
 
 
 class Bert4Rec(nn.Module):
@@ -94,13 +146,8 @@ class Bert4Rec(nn.Module):
     @torch.no_grad()
     def encode(self, items: torch.Tensor) -> torch.Tensor:
         """items (B, S) int -> hidden (B, S, D). Bidirectional attention."""
-        items = torch.as_tensor(items, device=self.device).long()
-        b, s = items.shape
-        x = (self.item_embed[items] + self.pos_embed[None, :s]).to(self.cfg.dtype)
-        positions = torch.arange(s, device=self.device).expand(b, s)
-        for blk in self.blocks:
-            x = blk(x, positions)
-        return L.layer_norm(x, self.ln_f, self.ln_fb)
+        top = {k: getattr(self, k) for k in _TOP}
+        return _encode(top, [blk.params() for blk in self.blocks], self.cfg, items)
 
     def serve(self, items: torch.Tensor) -> torch.Tensor:
         """Online scoring: the final position's hidden state (the next-item
@@ -134,28 +181,39 @@ def sample_training_batch(gen: torch.Generator, cfg: Bert4RecConfig, batch: int)
 
 def params_from_jax(params_np: dict, cfg: Bert4RecConfig, *, device: str | torch.device = "cuda") -> Bert4Rec:
     """A ``Bert4Rec`` holding the reference's parameters, given its tree
-    (``init_bert4rec``'s layout) as numpy arrays. The reference stacks the
-    blocks on a leading ``n_blocks`` axis; dense weights are (in, out) in
-    both packages."""
+    (``init_bert4rec``'s layout) as numpy arrays or tensors. The reference
+    stacks the blocks on a leading ``n_blocks`` axis; dense weights are
+    (in, out) in both packages."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     model = Bert4Rec(cfg, gen, device=dev)
 
     def put(param: nn.Parameter, value) -> None:
-        value = np.array(value, dtype=np.float32)
+        if not isinstance(value, torch.Tensor):
+            value = torch.from_numpy(np.array(value, dtype=np.float32))
         if tuple(value.shape) != tuple(param.shape):
-            raise ValueError(f"shape {value.shape} does not fit {tuple(param.shape)}")
+            raise ValueError(f"shape {tuple(value.shape)} does not fit {tuple(param.shape)}")
         with torch.no_grad():
-            param.copy_(torch.from_numpy(value))
+            param.copy_(value.to(torch.float32))
 
-    for name in ("item_embed", "pos_embed", "ln_f", "ln_fb", "out_bias"):
+    for name in _TOP:
         put(getattr(model, name), params_np[name])
     blocks = params_np["blocks"]
     for i, blk in enumerate(model.blocks):
-        for name in ("ln1", "ln1b", "ln2", "ln2b"):
-            put(getattr(blk, name), blocks[name][i])
-        for name in ("wq", "wk", "wv", "wo", "bq", "bk", "bv"):
-            put(getattr(blk.attn, name), blocks["attn"][name][i])
-        for name in ("wg", "wu", "wd"):
-            put(getattr(blk.mlp, name), blocks["mlp"][name][i])
+        tree_map(lambda param, value: put(param, value[i]), blk.params(), blocks)
     return model
+
+
+def params_tree(model: Bert4Rec) -> dict:
+    """The model's parameters as the reference's tree of tensors (copies on
+    the model's device, blocks stacked on a leading ``n_blocks`` axis): what
+    :func:`bert4rec_loss` and ``repro_torch.train`` take."""
+    with torch.no_grad():
+        blocks = tree_map(lambda *ts: torch.stack(ts), *[blk.params() for blk in model.blocks])
+        return {"blocks": blocks, **{k: getattr(model, k).detach().clone() for k in _TOP}}
+
+
+def params_to_jax(model: Bert4Rec) -> dict:
+    """The inverse of :func:`params_from_jax`: the reference's tree
+    (``init_bert4rec``'s layout) as float32 numpy arrays."""
+    return tree_map(to_numpy, params_tree(model))

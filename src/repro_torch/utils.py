@@ -1,8 +1,22 @@
-"""Small shared helpers: integer padding, device resolution, tie-exact argmin."""
+"""Small shared helpers: integer padding, device resolution, tie-exact
+argmin, and the tree math the optimizer needs.
+
+A *tree* is the reference's pytree as plain Python: dicts (walked in sorted
+key order), lists and tuples, NamedTuples (fields in declaration order) and
+``None`` (no leaves) around leaves that are tensors or numpy arrays. The
+walk order and the path strings are ``jax.tree_util.tree_flatten_with_path``'s
+(``['params']/['blocks']/['attn']/['wq']``, ``['opt_state']/.mu/...``), so a
+checkpoint's manifest names an array the same way in both packages.
+"""
 
 from __future__ import annotations
 
+from typing import Any, Callable
+
+import numpy as np
 import torch
+
+Tree = Any
 
 
 def ceil_div(a: int, b: int) -> int:
@@ -74,3 +88,104 @@ def topk_first(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     idx = take.nonzero()[:, 1].view(-1, k)  # row-major: ascending index per row
     vals, order = torch.sort(x2.gather(1, idx), dim=1, descending=True, stable=True)
     return vals.reshape(*lead, k), idx.gather(1, order).reshape(*lead, k)
+
+
+def _children(node) -> list[tuple[str, Any]] | None:
+    """(path key, child) pairs of a tree node in the reference's order, or
+    None for a leaf."""
+    if node is None:
+        return []
+    if isinstance(node, dict):
+        return [(f"[{k!r}]", node[k]) for k in sorted(node)]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return [(f".{f}", getattr(node, f)) for f in node._fields]
+    if isinstance(node, (list, tuple)):
+        return [(f"[{i}]", c) for i, c in enumerate(node)]
+    return None
+
+
+def tree_paths(tree: Tree) -> list[tuple[str, Any]]:
+    """(path, leaf) pairs in flatten order; the path is the reference's
+    ``"/".join(str(k) for k in keypath)``."""
+    out: list[tuple[str, Any]] = []
+
+    def walk(node, prefix: str) -> None:
+        kids = _children(node)
+        if kids is None:
+            out.append((prefix, node))
+            return
+        for key, child in kids:
+            walk(child, f"{prefix}/{key}" if prefix else key)
+
+    walk(tree, "")
+    return out
+
+
+def tree_leaves(tree: Tree) -> list:
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (trees of the same structure); the structure is kept."""
+    return tree_unflatten(tree, [fn(*xs) for xs in zip(tree_leaves(tree), *map(tree_leaves, rest))])
+
+
+def tree_unflatten(like: Tree, leaves) -> Tree:
+    """A tree of ``like``'s structure holding ``leaves`` in flatten order."""
+    pos = iter(leaves)
+
+    def build(node):
+        if _children(node) is None:
+            return next(pos)
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(build(getattr(node, f)) for f in node._fields))
+        return type(node)(build(c) for c in node)
+
+    return build(like)
+
+
+def tree_size(tree: Tree) -> int:
+    """Total number of elements across all leaves."""
+    return sum(int(np.prod(x.shape)) for x in tree_leaves(tree))
+
+
+def tree_bytes(tree: Tree) -> int:
+    """Total bytes across all leaves."""
+    return sum(int(np.prod(x.shape)) * x.dtype.itemsize for x in tree_leaves(tree))
+
+
+def tree_global_norm(tree: Tree) -> torch.Tensor:
+    """√(Σ over leaves of Σ x²), in float32, as a 0-dim tensor."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)))
+
+
+def tree_cast(tree: Tree, dtype: torch.dtype) -> Tree:
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def to_numpy(x) -> np.ndarray:
+    """A leaf as a numpy array; bfloat16 (which numpy lacks) as float32."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
+def fingerprint(tree: Tree) -> float:
+    """Cheap deterministic scalar fingerprint of a tree (for checkpoint
+    checks), summed by numpy as the reference sums it. bfloat16 leaves take
+    the integer branch, as the reference's (numpy kind ``V``) do."""
+    total = 0.0
+    for leaf in tree_leaves(tree):
+        arr = to_numpy(leaf)
+        bf16 = isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
+        if arr.dtype.kind in "fc" and not bf16:
+            total += float(np.sum(np.nan_to_num(arr, posinf=1e30, neginf=-1e30)))
+        else:
+            total += float(np.sum(arr.astype(np.int64) % 1000003))
+    return total

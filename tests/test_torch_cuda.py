@@ -21,7 +21,8 @@ mirror of any M (the byte-wise layout) both equal their plain versions.
 The incremental build on the card, and the flat Vamana and NSG builds
 over ``flash_blocked``, equal the CPU path's from one coder's state where
 the two devices' query tables agree, and a snapshot of a card
-index loads back on the card searching identically.
+index loads back on the card searching identically. The BERT4Rec train
+step on the card agrees with the CPU's (the tolerance is in its test).
 """
 
 from __future__ import annotations
@@ -642,3 +643,55 @@ def test_cuda_recover_equals_the_cpu_recover(cuda_device, tmp_path):
     a = on_card.index.search(queries, k=10, ef=64)
     b = on_cpu.index.search(queries, k=10, ef=64)
     assert torch.equal(a.ids.cpu(), b.ids) and torch.equal(a.dists.cpu(), b.dists)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compression", ["none", "bf16", "int8_ef"])
+def test_cuda_train_step_equals_the_cpu(cuda_device, compression):
+    """``make_train_step`` (2 microbatches) at the reduced BERT4Rec config
+    on the card and on the CPU from one set of parameters and the same 3
+    batches: loss and lr at rtol 1e-5, grad_norm at rtol 1e-4, every
+    parameter, moment and residual within atol/rtol 1e-4 except at most 1
+    in 10,000 elements, each within 2·steps·lr (a gradient that is float
+    noise moves its parameter by ±lr, whichever sign the noise has)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.recsys import bert4rec as b4r
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = get_arch("bert4rec").make_reduced()
+    params_np = b4r.params_to_jax(b4r.Bert4Rec(cfg, torch.Generator().manual_seed(0), device="cpu"))
+    rng = np.random.default_rng(1)
+    batches = []
+    for _ in range(3):
+        mask = rng.random((8, cfg.seq_len)) < cfg.mask_prob
+        mask[:, -1] = True
+        batches.append({"items": rng.integers(0, cfg.n_items, (2, 4, cfg.seq_len)).astype(np.int32),
+                        "mask_positions": mask.reshape(2, 4, -1)})
+    lr = 3e-3
+    tc = tl.TrainConfig(opt=opt.AdamWConfig(lr=lr, warmup_steps=0, schedule="constant"), microbatches=2,
+                        compression=compression)
+
+    def loss_fn(p, batch):
+        return b4r.bert4rec_loss(p, cfg, batch["items"], batch["mask_positions"]), {}
+
+    step = tl.make_train_step(loss_fn, tc)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        tree = tl.init_train_state(tree_map(lambda a, d=dev: torch.from_numpy(a).to(d), params_np), tc).tree()
+        metrics = []
+        for b in batches:
+            tree, m = step(tree, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[dev.type] = (tree, metrics)
+    for mc, mp in zip(out["cuda"][1], out["cpu"][1]):
+        for k in mp:
+            np.testing.assert_allclose(mc[k], mp[k], rtol=1e-4 if k == "grad_norm" else 1e-5, err_msg=k)
+    off = total = 0
+    for a, b in zip(tree_leaves(out["cuda"][0]), tree_leaves(out["cpu"][0])):
+        a, b = a.double().cpu(), b.double()
+        assert float((a - b).abs().max()) <= 2 * 3 * lr + 1e-4
+        off += int(((a - b).abs() > 1e-4 + 1e-4 * b.abs()).sum())
+        total += b.numel()
+    assert off <= total // 10_000, f"{off} of {total} elements differ"
