@@ -190,6 +190,27 @@ non-zero and no result line is printed):
             10, rerank 8) with one ``flash_scan`` launch per query and the
             CPU path's ids on 8 queries whose query tables agree; recall@10
             against ``score_dense``.
+13. lm_serving  the LM family (``repro_torch.models.transformer``)
+            serving prefill and greedy decode at full width, random weights
+            from a seeded generator, bf16 compute: llama3.2-3b (28 layers)
+            at B = 2 × S = 32,256 into caches of 32,768, 64 tokens;
+            deepseek-v3-671b cut to 4 layers (3 dense + 1 MoE of 256
+            experts) at B = 2 × S = 4,096, 32 tokens; qwen1.5-0.5b (24
+            layers) at B = 2 × S = 4,096, 32 tokens. Per config: prefill s
+            (after a warm-up prefill of 512 tokens) and tokens/s, decode ms
+            per step (median) and tokens/s, model FLOPs over seconds against
+            the dense bf16 peak (the reference's formulas), peak memory, a
+            profiler window over 4 decode steps and one over the prefill at
+            full length through one layer of each kind. (a) Decoding the last prompt token at S − 1 against the
+            prefill's caches gives the prefill's argmax on every row and
+            logits within ``LM_DECODE_ATOL`` (the MoE config at a 64-token
+            prompt and a capacity factor at which no token is dropped). (b)
+            The five reduced configs, and llama3.2-3b's full width at depth
+            2, in float32: the card's prefill logits and caches and 4 decode
+            steps equal the CPU path's within ``LM_CARD_ATOL``; the card's
+            side again with TF32 on is printed as the control. No kernel
+            of the repo runs here: the products and attention are plain
+            PyTorch, as the reference computes them outside Pallas.
 
 Launch counts are zeroed just before each path (the main path: phases 3–4;
 the incremental path and the bulk build beside it: phase 6, each counted
@@ -198,7 +219,8 @@ serving path: phases 7d and 10b, each counted, then summed; the
 baselines and generality paths: phases 7b and 7c; the scale-out path:
 phases 8–10; the retrieval path: phase 11; the training path: phase 12
 (b)–(d)) and read just after it;
-the script fails if a kernel of a path never launched there. The main
+the script fails if a kernel of a path never launched there. The LM
+serving path (phase 13) has no kernel of the repo to count. The main
 path's M = 16 coder must read its mirror as 8-byte words on every launch
 (``launches["mirror_*"]``). ``sq_l2`` and ``flash_expand`` are on no path:
 phase 2 alone runs them (and ``flash_expand`` the loop that ``flash_beam``
@@ -318,10 +340,14 @@ def profiler_kernel_ms(fn, kernel: str, reps: int = 5):
     return us / reps / 1e3 if us > 0 else "no device time recorded"
 
 
+#: words in the names of cuBLAS's and CUTLASS's matrix-product kernels
+PRODUCT_KERNEL_WORDS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
 def device_window(fn, cpu: bool = True) -> dict:
     """One call of ``fn`` under the profiler: the window's host ms, the
-    device busy share (kernel time over the window) and the top five
-    kernels by device time. ``cpu=False`` records the CUDA activity alone
+    device busy share (kernel time over the window), the device ms in
+    matrix-product kernels and the top five kernels by device time. ``cpu=False`` records the CUDA activity alone
     (a window of ~10⁵ launches takes minutes to parse with the CPU ops)."""
     prof, wall = profiled(fn, cpu=cpu)
     if prof is None:
@@ -332,8 +358,9 @@ def device_window(fn, cpu: bool = True) -> dict:
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, cnt + 1)
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    products = sum(ms for k, (ms, _) in by_name.items() if any(w in k for w in PRODUCT_KERNEL_WORDS))
     return {"window_ms": wall, "device_ms": busy, "busy_share": busy / wall if wall else None,
-            "device_ops": sum(c for _, c in by_name.values()),
+            "device_ops": sum(c for _, c in by_name.values()), "products_ms": products,
             "top5": [{"name": k[:120], "ms": ms, "count": c} for k, (ms, c) in top]}
 
 
@@ -2149,6 +2176,232 @@ def training_path(dev, t_start: float) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The LM serving path (phase 13)
+# ---------------------------------------------------------------------------
+
+LM_SEED = 0
+BF16_TENSOR_OPS_PER_S = 989e12  # dense bf16 on the tensor cores, NVIDIA data sheet
+#: the cells (PERF.md §4 gives the cuts): (arch, depth or None for the full
+#: depth, batch, prompt length, greedy decode tokens, cache length S_max)
+LM_CELLS = (
+    ("llama3.2-3b", None, 2, 32256, 64, 32768),
+    ("deepseek-v3-671b", 4, 2, 4096, 32, 4224),
+    ("qwen1.5-0.5b", None, 2, 4096, 32, 4224),
+)
+LM_WINDOW_STEPS = 4  # decode steps under the profiler
+LM_MOE_CHECK_PROMPT = 64  # the MoE config's decode-equals-prefill prompt
+LM_WARMUP_PROMPT = 512  # the warm-up prefill's prompt: one query block of each config
+LM_ARCHS = ("qwen2-72b", "qwen1.5-0.5b", "llama3.2-3b", "deepseek-v3-671b", "moonshot-v1-16b-a3b")
+#: decode against prefill, bf16 at full width: the largest |Δ| of the logits
+#: allowed, eight bfloat16 steps at |logit| ≈ 4 (0.062–0.087 measured on the
+#: H100; PERF.md §6)
+LM_DECODE_ATOL = 0.25
+#: card against CPU in float32, TF32 off: the reduced configs, and llama's
+#: full width at depth 2 (sums of 3,072 and 8,192 terms). Measured on the
+#: H100 (PERF.md §6): 3.3e-6–7.7e-6; the control, the card with TF32 on,
+#: 3.4e-3–7.8e-3, which must stay above the bound
+LM_CARD_ATOL = 1e-4
+
+
+def lm_decode_flops(cfg, batch: int, s_max: int) -> float:
+    """The reference's decode model FLOPs (``launch/steps.py:219-226``):
+    2·active params per token plus attention against the whole cache."""
+    if cfg.attn == "mla":
+        attn = 2.0 * batch * s_max * cfg.n_heads * (cfg.kv_lora_rank * 2 + cfg.qk_rope_dim) * cfg.n_layers
+    else:
+        attn = 4.0 * batch * s_max * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    return 2.0 * cfg.active_param_count() * batch + attn
+
+
+def lm_card_vs_cpu(dev, make_cfg, label: str, prompt: int, atol: float) -> dict:
+    """Check (b): one set of float32 weights on the card and the CPU; the
+    prefill logits and caches and 4 decode steps (fixed tokens) allclose.
+    The control: the card's side again with TF32 on, whose reading the
+    bound must lie below."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils import tree_map
+
+    cfg = make_cfg()
+    gen = torch.Generator()
+    gen.manual_seed(LM_SEED)
+    cpu = tfm.init_lm(gen, cfg, device="cpu")
+    card = tree_map(lambda t: t.to(dev), cpu)
+    rng = np.random.default_rng([LM_SEED, prompt])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, prompt + 4)))
+
+    def run(params, d) -> dict:
+        logits, caches = tfm.lm_prefill(params, cfg, toks[:, :prompt].to(d), s_max=prompt + 4)
+        out = {"prefill_logits": logits.cpu(), "caches": {k: v.cpu().clone() for k, v in caches.items()}}
+        for i in range(4):
+            pos = torch.tensor(prompt + i, device=d) if d.type == "cuda" else prompt + i
+            logits, _ = tfm.lm_decode_step(params, cfg, caches, toks[:, prompt + i].to(d), pos)
+            out[f"decode_logits_{i}"] = logits.cpu()
+        out["caches_after_decode"] = {k: v.cpu() for k, v in caches.items()}
+        return out
+
+    def worst(got: dict, want: dict) -> dict:
+        def diff(a, b) -> float:
+            if isinstance(b, dict):
+                return max(diff(a[k], b[k]) for k in b)
+            return float((a.double() - b.double()).abs().max())
+
+        w = {k: diff(got[k], want[k]) for k in want}
+        return {"prefill_logits": w["prefill_logits"], "caches": max(w["caches"], w["caches_after_decode"]),
+                "decode_logits": max(v for k, v in w.items() if k.startswith("decode"))}
+
+    want = run(cpu, torch.device("cpu"))
+    sound = worst(run(card, dev), want)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = worst(run(card, dev), want)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    if not all(np.isfinite(v) and v <= atol for v in sound.values()):
+        raise AssertionError(f"lm card vs CPU ({label}): {sound} beyond atol {atol}")
+    if not max(control.values()) > atol:
+        raise AssertionError(f"lm card vs CPU ({label}): atol {atol} does not tell TF32 ({control}) from float32")
+    return {"max_abs_diff": sound, "atol": atol, "tf32_control_max_abs_diff": control}
+
+
+def lm_cell(dev, arch: str, depth, batch: int, prompt: int, n_decode: int, s_max: int) -> dict:
+    """One config at full width: prefill, check (a), greedy decode, a
+    profiler window. Returns the cell's numbers."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils import sync, tree_bytes, tree_map
+
+    cfg = get_arch(arch).make_full()
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    out = {"arch": arch, "n_layers": cfg.n_layers, "batch": batch, "prompt": prompt, "s_max": s_max,
+           "decode_tokens": n_decode, "params_b": cfg.param_count() / 1e9,
+           "active_params_b": cfg.active_param_count() / 1e9}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+    params = tfm.serving_params(tfm.init_lm(gen, cfg, device=dev), cfg)
+    sync(dev)
+    out["init_s"] = time.perf_counter() - t0
+    out["serving_params_gb"] = tree_bytes(params) / 1e9
+    toks = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen, device=dev)
+
+    # a warm-up prefill of one query block, so that the timed one pays no
+    # first call's costs
+    warm = toks[:, :LM_WARMUP_PROMPT]
+    sync(dev)
+    t0 = time.perf_counter()
+    tfm.lm_prefill(params, cfg, warm)
+    sync(dev)
+    out["prefill_warmup"] = {"prompt": int(warm.shape[1]), "s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    logits, caches = tfm.lm_prefill(params, cfg, toks, s_max=s_max)
+    sync(dev)
+    prefill_s = time.perf_counter() - t0
+    if tuple(logits.shape) != (batch, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch}: prefill logits malformed")
+    flops = 2.0 * cfg.active_param_count() * batch * prompt
+    out["prefill"] = {"s": prefill_s, "tokens_per_s": batch * prompt / prefill_s,
+                      "model_tflops_per_s": flops / prefill_s / 1e12,
+                      "share_of_bf16_peak": flops / prefill_s / BF16_TENSOR_OPS_PER_S}
+    out["cache_gb"] = tree_bytes(caches) / 1e9
+
+    # (a) decode the last prompt token at S − 1 against the prefill's caches
+    if cfg.moe is None:
+        dec, _ = tfm.lm_decode_step(params, cfg, caches, toks[:, -1], torch.tensor(prompt - 1, device=dev))
+        want, check_prompt = logits, prompt
+    else:
+        # the MoE config at a short prompt and a capacity factor at which no
+        # step drops a token (capacity = n for prefill and decode alike)
+        check_prompt = LM_MOE_CHECK_PROMPT
+        ccfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.n_experts
+                                                                                              / cfg.moe.top_k)))
+        want, short = tfm.lm_prefill(params, ccfg, toks[:, :check_prompt])
+        dec, _ = tfm.lm_decode_step(params, ccfg, short, toks[:, check_prompt - 1],
+                                    torch.tensor(check_prompt - 1, device=dev))
+        del short
+    delta = float((dec - want).abs().max())
+    same = dec.argmax(-1) == want.argmax(-1)
+    top2 = want.topk(2, dim=-1).values
+    out["decode_equals_prefill"] = {"prompt": check_prompt, "argmax_equal_rows": int(same.sum()),
+                                    "max_abs_diff": delta, "atol": LM_DECODE_ATOL,
+                                    "prefill_top2_margin": (top2[:, 0] - top2[:, 1]).tolist()}
+    if not bool(same.all()) or not delta <= LM_DECODE_ATOL:
+        raise AssertionError(f"{arch}: decode at S − 1 against prefill: {out['decode_equals_prefill']}")
+
+    # greedy decode from the prefill's last logits
+    tok = logits.argmax(-1)
+    step_s, generated = [], []
+    for i in range(n_decode):
+        t0 = time.perf_counter()
+        step_logits, _ = tfm.lm_decode_step(params, cfg, caches, tok, torch.tensor(prompt + i, device=dev))
+        tok = step_logits.argmax(-1)
+        sync(dev)
+        step_s.append(time.perf_counter() - t0)
+        generated.append(tok)
+    if not bool(torch.isfinite(step_logits).all()):
+        raise AssertionError(f"{arch}: decode logits not finite")
+    med = float(np.median(step_s))
+    dflops = lm_decode_flops(cfg, batch, s_max)
+    out["decode"] = {"ms_per_step_median": med * 1e3, "ms_per_step_first": step_s[0] * 1e3,
+                     "tokens_per_s": batch / med, "model_tflops_per_s": dflops / med / 1e12,
+                     "share_of_bf16_peak": dflops / med / BF16_TENSOR_OPS_PER_S,
+                     "tokens_row0": torch.stack(generated)[:8, 0].tolist()}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # where a decode step's time goes: a profiler window over 4 steps
+    pos = [prompt + n_decode]
+
+    def steps():
+        for _ in range(LM_WINDOW_STEPS):
+            tfm.lm_decode_step(params, cfg, caches, tok, torch.tensor(pos[0], device=dev))
+            pos[0] += 1
+
+    out["profile_4_decode_steps"] = device_window(steps)
+    del caches
+
+    # where a prefill's time goes: a profiler window over the prompt at its
+    # full length through the model cut to one layer of each kind
+    one = dataclasses.replace(cfg, n_layers=1 if cfg.moe is None else 2, moe_first_dense=int(cfg.moe is not None))
+    cut = dict(params)
+    for key in ("blocks_dense", "blocks_moe"):
+        if cut.get(key) is not None:
+            cut[key] = tree_map(lambda t: t[:1], cut[key])
+    window = device_window(lambda: tfm.lm_prefill(cut, one, toks), cpu=False)
+    out["profile_prefill_one_layer_each"] = {"n_layers": one.n_layers, **window}
+    del params, cut
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_serving_path(dev, t_start: float) -> None:
+    """Phase 13: the LM family serving prefill and decode (``LM_CELLS``),
+    then check (b), the card against the CPU in float32."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+
+    t_phase = time.perf_counter()
+    out = {"cells": [lm_cell(dev, *cell) for cell in LM_CELLS]}
+    t0 = time.perf_counter()
+    card_cpu = {}
+    for arch in LM_ARCHS:
+        card_cpu[arch] = lm_card_vs_cpu(dev, get_arch(arch).make_reduced, arch, 12, LM_CARD_ATOL)
+    llama2 = lambda: dataclasses.replace(get_arch("llama3.2-3b").make_full(), n_layers=2, dtype=torch.float32)
+    card_cpu["llama3.2-3b@2"] = lm_card_vs_cpu(dev, llama2, "llama3.2-3b@2", 16, LM_CARD_ATOL)
+    out["card_vs_cpu"] = card_cpu
+    out["card_vs_cpu_s"] = time.perf_counter() - t0
+    emit({"phase": "lm_serving", **out, "phase_s": time.perf_counter() - t_phase,
+          "elapsed_s": time.perf_counter() - t_start})
+
+
 def check_repaired_limits(dev, g) -> dict:
     """Phase 2's shapes that raised before the limits were repaired, each
     held bit for bit against its plain version: an (M, K) = (64, 256) int32
@@ -2820,6 +3073,9 @@ def main() -> int:
 
     # ---- 12. the training path, then serving from its checkpoint -------------
     train_launches = training_path(dev, t_start)
+
+    # ---- 13. the LM family serving prefill and decode ------------------------
+    lm_serving_path(dev, t_start)
 
     rows = []
     for name, key in (("flash_round", "flash_round"), ("flash_expand", "flash_expand_w4"),

@@ -1,0 +1,371 @@
+"""Decoder-only LM: dense (qwen2, qwen1.5, llama3.2) and MoE (deepseek-v3,
+moonshot) variants with GQA or MLA attention, in PyTorch.
+
+Entry points (the reference's ``repro.models.transformer``):
+
+  init_lm(gen, cfg, device=)               parameters (layer-stacked tree)
+  lm_forward(params, cfg, tokens)          logits (B, S, V) and MoE aux
+  make_caches(cfg, batch, s_max, device=)  zeroed KV caches
+  lm_prefill(params, cfg, tokens)          last logits + caches filled to S
+  lm_decode_step(params, cfg, caches, token, pos)   one token per row
+
+The tree is the reference's: ``embed``, ``head``, ``ln_f``, the blocks
+stacked on a leading layer axis in ``blocks_dense`` (the first
+``moe_first_dense`` layers of an MoE model, or every layer of a dense one)
+and ``blocks_moe`` (None where a model has none), and ``mtp_proj`` /
+``mtp_block`` when ``mtp_depth``. Layers run as a Python loop over the
+stacked axis. :func:`params_from_jax` and :func:`params_to_jax` carry the
+tree across bit for bit.
+
+Compute dtype: each block's float32 weights are rounded to ``cfg.dtype``
+at use, norm scales stay as they are (``_cast_block``), ``embed`` rows and
+``head`` are cast at use. :func:`serving_params` makes those roundings
+once, at load, which is the same arithmetic; a serving caller holds that
+copy instead of the float32 masters.
+
+The decode step writes its position into ``caches`` in place and returns
+the same tensors (the reference's jitted step donates them). Training
+(``lm_loss`` with MTP and the MoE aux losses) is ROADMAP queue 1, item 9;
+the parameter and cache shardings (``lm_param_specs``, ``cache_specs``)
+are item 7.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.moe import MoEConfig, init_moe, moe_forward
+from repro_torch.utils import resolve_device, tree_map
+
+Params = dict[str, Any]
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int  # dense-layer FFN width
+    vocab: int
+    qkv_bias: bool = False
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-6
+    attn: str = "gqa"  # "gqa" | "mla"
+    # MLA dims (deepseek-v3 defaults)
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # MoE
+    moe: MoEConfig | None = None
+    moe_first_dense: int = 0
+    mtp_depth: int = 0
+    # execution
+    dtype: torch.dtype = torch.bfloat16  # compute dtype
+    param_dtype: torch.dtype = torch.float32  # storage dtype (bf16 for 72B/671B)
+    block_q: int | None = None  # query chunk of the blockwise prefill attention
+    remat: bool = True  # the reference's rematerialisation in training; serving ignores it
+
+    @property
+    def n_dense_layers(self) -> int:
+        return self.n_layers if self.moe is None else self.moe_first_dense
+
+    @property
+    def n_moe_layers(self) -> int:
+        return 0 if self.moe is None else self.n_layers - self.moe_first_dense
+
+    def param_count(self) -> float:
+        """Analytic total parameter count (the reference's, for model FLOPs)."""
+        d, v = self.d_model, self.vocab
+        if self.attn == "mla":
+            attn = (
+                d * self.q_lora_rank
+                + self.q_lora_rank * self.n_heads * (self.qk_nope_dim + self.qk_rope_dim)
+                + d * self.kv_lora_rank
+                + d * self.qk_rope_dim
+                + self.kv_lora_rank * self.n_heads * (self.qk_nope_dim + self.v_head_dim)
+                + self.n_heads * self.v_head_dim * d
+            )
+        else:
+            attn = d * self.head_dim * (self.n_heads * 2 + self.n_kv_heads * 2)
+        total = v * d * 2  # embed + head
+        total += self.n_dense_layers * (attn + 3 * d * self.d_ff)
+        if self.moe is not None:
+            m = self.moe
+            total += self.n_moe_layers * (attn + 3 * d * m.d_ff * (m.n_experts + m.n_shared) + d * m.n_experts)
+        return float(total)
+
+    def active_param_count(self) -> float:
+        """Parameters active per token (MoE: the top-k and shared experts)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        idle = 3 * self.d_model * m.d_ff * (m.n_experts - m.top_k)
+        return self.param_count() - self.n_moe_layers * idle
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _init_block(gen: torch.Generator, cfg: TransformerConfig, *, moe: bool, device) -> Params:
+    dt = cfg.param_dtype
+    if cfg.attn == "mla":
+        attn = L.init_mla(gen, d_model=cfg.d_model, n_heads=cfg.n_heads, q_lora_rank=cfg.q_lora_rank,
+                          kv_lora_rank=cfg.kv_lora_rank, qk_nope_dim=cfg.qk_nope_dim,
+                          qk_rope_dim=cfg.qk_rope_dim, v_head_dim=cfg.v_head_dim, device=device, dtype=dt)
+    else:
+        attn = L.init_gqa(gen, d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                          head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias, device=device, dtype=dt)
+    if moe:
+        ffn = init_moe(gen, d_model=cfg.d_model, cfg=cfg.moe, device=device, dtype=dt)
+    else:
+        ffn = L.init_mlp(gen, d_model=cfg.d_model, d_ff=cfg.d_ff, device=device, dtype=dt)
+    ones = torch.ones(cfg.d_model, device=device, dtype=dt)
+    return {"attn": attn, "ffn": ffn, "ln1": ones, "ln2": ones.clone()}
+
+
+def _stack_blocks(gen: torch.Generator, cfg: TransformerConfig, n: int, *, moe: bool, device) -> Params | None:
+    """``n`` blocks stacked on a leading axis, drawn one layer at a time."""
+    if n == 0:
+        return None
+    first = _init_block(gen, cfg, moe=moe, device=device)
+    if n == 1:
+        return tree_map(lambda t: t.unsqueeze(0), first)
+    stacked = tree_map(lambda t: torch.empty((n, *t.shape), dtype=t.dtype, device=t.device), first)
+    for i in range(n):
+        blk = first if i == 0 else _init_block(gen, cfg, moe=moe, device=device)
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, blk)
+    return stacked
+
+
+def init_lm(gen: torch.Generator, cfg: TransformerConfig, *, device: str | torch.device = "cuda") -> Params:
+    """Random parameters in the reference's layout (``init_lm``'s
+    distributions: embed N(0, 0.02²), head and dense weights 1/√fan_in,
+    norm scales 1), drawn from ``gen`` on ``device`` in float32 and stored
+    in ``cfg.param_dtype``."""
+    dev = resolve_device(device)
+    dt = cfg.param_dtype
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dt)
+
+    p = {
+        "embed": normal((cfg.vocab, cfg.d_model), 0.02),
+        "blocks_dense": _stack_blocks(gen, cfg, cfg.n_dense_layers, moe=False, device=dev),
+        "blocks_moe": _stack_blocks(gen, cfg, cfg.n_moe_layers, moe=True, device=dev),
+        "ln_f": torch.ones(cfg.d_model, device=dev, dtype=dt),
+        "head": normal((cfg.d_model, cfg.vocab), 1.0 / math.sqrt(cfg.d_model)),
+    }
+    if cfg.mtp_depth:
+        p["mtp_proj"] = normal((2 * cfg.d_model, cfg.d_model), 1.0 / math.sqrt(2 * cfg.d_model))
+        p["mtp_block"] = _init_block(gen, cfg, moe=False, device=dev)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Weight carry-over and the serving copy
+# ---------------------------------------------------------------------------
+
+
+def _from_numpy(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes, which numpy lacks
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # the reference's bfloat16 arrays; comes with JAX
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_jax(tree_np: Params, cfg: TransformerConfig, device: str | torch.device = "cuda") -> Params:
+    """The reference's ``init_lm`` tree (numpy or JAX arrays, bfloat16 as
+    ``ml_dtypes``) as tensors on ``device``, bit for bit; the stacked
+    blocks must hold ``cfg``'s layer counts."""
+    dev = resolve_device(device)
+    for key, n in (("blocks_dense", cfg.n_dense_layers), ("blocks_moe", cfg.n_moe_layers)):
+        blocks = tree_np.get(key)
+        got = 0 if blocks is None else int(np.shape(blocks["ln1"])[0])
+        if got != n:
+            raise ValueError(f"{key} holds {got} layers where {cfg.name} has {n}")
+    return tree_map(lambda a: _from_numpy(a).to(dev), tree_np)
+
+
+def params_to_jax(params: Params) -> Params:
+    """The inverse of :func:`params_from_jax`: numpy arrays of the same
+    dtypes (bfloat16 as ``ml_dtypes.bfloat16``), bit for bit."""
+    return tree_map(_to_numpy, params)
+
+
+def _cast_block(blk: Params, dtype: torch.dtype) -> Params:
+    """Round a block's float32 weights to the compute dtype; norm scales
+    (names holding ``ln`` or ``norm``) and other dtypes stay."""
+    def cast(node, name=""):
+        if isinstance(node, dict):
+            return {k: cast(v, k) for k, v in node.items()}
+        if "ln" in name or "norm" in name or node.dtype != torch.float32:
+            return node
+        return node.to(dtype)
+
+    return cast(blk)
+
+
+def serving_params(params: Params, cfg: TransformerConfig) -> Params:
+    """The tree with every rounding the forwards make at use made once:
+    the blocks through ``_cast_block`` and ``embed``/``head`` in
+    ``cfg.dtype``. The forwards then compute exactly as from ``params``."""
+    out = dict(params)
+    for key in ("blocks_dense", "blocks_moe", "mtp_block"):
+        if out.get(key) is not None:
+            out[key] = _cast_block(out[key], cfg.dtype)
+    for key in ("embed", "head", "mtp_proj"):
+        if key in out:
+            out[key] = out[key].to(cfg.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _layers(params: Params, cfg: TransformerConfig):
+    """(layer index, block, is MoE) over the stacked blocks in order."""
+    nd = cfg.n_dense_layers
+    for key, n, moe, base in (("blocks_dense", nd, False, 0), ("blocks_moe", cfg.n_moe_layers, True, nd)):
+        blocks = params[key]
+        for i in range(n):
+            yield base + i, _cast_block(tree_map(lambda t: t[i], blocks), cfg.dtype), moe
+
+
+def _ffn(blk: Params, x: torch.Tensor, cfg: TransformerConfig, moe: bool):
+    h = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
+    if moe:
+        f, aux = moe_forward(blk["ffn"], h, cfg.moe)
+    else:
+        f, aux = L.mlp_forward(blk["ffn"], h), {}
+    return x + f, aux
+
+
+def _attn_forward(blk: Params, h: torch.Tensor, positions: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    if cfg.attn == "mla":
+        return L.mla_forward(blk["attn"], h, positions, n_heads=cfg.n_heads, qk_nope_dim=cfg.qk_nope_dim,
+                             qk_rope_dim=cfg.qk_rope_dim, v_head_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta,
+                             block_q=cfg.block_q)
+    return L.gqa_forward(blk["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                         head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, block_q=cfg.block_q)
+
+
+def _embed(params: Params, cfg: TransformerConfig, tokens: torch.Tensor):
+    b, s = tokens.shape
+    x = params["embed"][tokens].to(cfg.dtype)
+    return x, torch.arange(s, device=tokens.device).expand(b, s)
+
+
+def _logits(params: Params, cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return L.matmul(x, params["head"].to(cfg.dtype)).to(torch.float32)
+
+
+def lm_forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor):
+    """tokens (B, S) -> (logits (B, S, V) float32, aux): aux holds each MoE
+    loss averaged over the MoE layers, as ``moe/load_balance`` and
+    ``moe/router_z``."""
+    x, positions = _embed(params, cfg, tokens)
+    auxs: dict[str, list] = {}
+    for _, blk, moe in _layers(params, cfg):
+        x = x + _attn_forward(blk, L.rms_norm(x, blk["ln1"], cfg.norm_eps), positions, cfg)
+        x, aux = _ffn(blk, x, cfg, moe)
+        for k, v in aux.items():
+            auxs.setdefault(f"moe/{k}", []).append(v)
+    return _logits(params, cfg, x), {k: torch.stack(v).mean() for k, v in auxs.items()}
+
+
+def lm_loss(*args, **kwargs):
+    raise NotImplementedError("LM training (lm_loss with MTP and the MoE aux losses) is not ported yet "
+                              "(ROADMAP queue 1, item 9: LM training)")
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def make_caches(cfg: TransformerConfig, batch: int, s_max: int, *, device: str | torch.device = "cuda") -> dict:
+    """Zeroed caches in ``cfg.dtype``. GQA: ``k``, ``v`` (L, B, S, Kv, hd);
+    MLA: ``ckv`` (L, B, S, r_kv) and ``krope`` (L, B, S, rope)."""
+    dev = resolve_device(device)
+    n_l = cfg.n_layers
+    if cfg.attn == "mla":
+        shapes = {"ckv": (cfg.kv_lora_rank,), "krope": (cfg.qk_rope_dim,)}
+    else:
+        shapes = {"k": (cfg.n_kv_heads, cfg.head_dim), "v": (cfg.n_kv_heads, cfg.head_dim)}
+    return {k: torch.zeros((n_l, batch, s_max, *tail), dtype=cfg.dtype, device=dev) for k, tail in shapes.items()}
+
+
+@torch.no_grad()
+def lm_prefill(params: Params, cfg: TransformerConfig, tokens: torch.Tensor, s_max: int | None = None):
+    """The forward pass over the prompt, filling the caches. tokens (B, S)
+    -> (logits of the last position (B, V) float32, caches filled to S).
+    The caches are ``s_max`` long (default S, as the reference's), zero
+    past S: a caller that decodes passes the length it decodes to."""
+    b, s = tokens.shape
+    if s_max is not None and s_max < s:
+        raise ValueError(f"s_max {s_max} is shorter than the prompt's {s} tokens")
+    x, positions = _embed(params, cfg, tokens)
+    caches = make_caches(cfg, b, s if s_max is None else s_max, device=tokens.device)
+    for layer, blk, moe in _layers(params, cfg):
+        h = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
+        if cfg.attn == "mla":
+            a, kv = L.mla_prefill(blk["attn"], h, positions, n_heads=cfg.n_heads, qk_nope_dim=cfg.qk_nope_dim,
+                                  qk_rope_dim=cfg.qk_rope_dim, v_head_dim=cfg.v_head_dim,
+                                  rope_theta=cfg.rope_theta, block_q=cfg.block_q)
+            names = ("ckv", "krope")
+        else:
+            a, kv = L.gqa_prefill(blk["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                                  head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, block_q=cfg.block_q)
+            names = ("k", "v")
+        for name, t in zip(names, kv):
+            caches[name][layer, :, :s] = t
+        x, _ = _ffn(blk, x + a, cfg, moe)
+    return _logits(params, cfg, x[:, -1, :]), caches
+
+
+@torch.no_grad()
+def lm_decode_step(params: Params, cfg: TransformerConfig, caches: dict, token: torch.Tensor, pos):
+    """One token per row: token (B,), ``pos`` an int or a 0-dim tensor (a
+    tensor on the card keeps the step free of host syncs but the MoE
+    routing's) -> (logits (B, V) float32, caches written at ``pos`` in
+    place)."""
+    x = params["embed"][token][:, None, :].to(cfg.dtype)
+    pos = L.decode_position(pos, x.device)
+    for layer, blk, moe in _layers(params, cfg):
+        h = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
+        if cfg.attn == "mla":
+            a, _ = L.mla_decode(blk["attn"], h, caches["ckv"][layer], caches["krope"][layer], pos,
+                                n_heads=cfg.n_heads, qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+                                v_head_dim=cfg.v_head_dim, kv_lora_rank=cfg.kv_lora_rank,
+                                rope_theta=cfg.rope_theta)
+        else:
+            a, _ = L.gqa_decode(blk["attn"], h, caches["k"][layer], caches["v"][layer], pos,
+                                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                                rope_theta=cfg.rope_theta)
+        x, _ = _ffn(blk, x + a, cfg, moe)
+    return _logits(params, cfg, x[:, 0, :]), caches

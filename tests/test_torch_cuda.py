@@ -22,7 +22,9 @@ The incremental build on the card, and the flat Vamana and NSG builds
 over ``flash_blocked``, equal the CPU path's from one coder's state where
 the two devices' query tables agree, and a snapshot of a card
 index loads back on the card searching identically. The BERT4Rec train
-step on the card agrees with the CPU's (the tolerance is in its test).
+step on the card agrees with the CPU's (the tolerance is in its test), and
+so do the LM family's prefill and decode at each reduced config (float32,
+atol 1e-4).
 """
 
 from __future__ import annotations
@@ -695,3 +697,36 @@ def test_cuda_train_step_equals_the_cpu(cuda_device, compression):
         off += int(((a - b).abs() > 1e-4 + 1e-4 * b.abs()).sum())
         total += b.numel()
     assert off <= total // 10_000, f"{off} of {total} elements differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-72b", "qwen1.5-0.5b", "llama3.2-3b", "deepseek-v3-671b",
+                                  "moonshot-v1-16b-a3b"])
+def test_cuda_lm_prefill_and_decode_equal_the_cpu(cuda_device, arch):
+    """One set of float32 weights (the reduced config) on the card and the
+    CPU, TF32 off: the prefill logits and caches and 3 decode steps of fixed
+    tokens allclose at atol 1e-4 (float32 sums in another order; the
+    measured largest difference is below 1e-5)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils import tree_map
+
+    cfg = get_arch(arch).make_reduced()
+    cpu = tfm.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = tree_map(lambda t: t.to(cuda_device), cpu)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 15)))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, want = {}, {}
+        for params, dev, out in ((card, cuda_device, got), (cpu, torch.device("cpu"), want)):
+            logits, caches = tfm.lm_prefill(params, cfg, toks[:, :12].to(dev), s_max=15)
+            out["prefill"] = logits.cpu()
+            for i in range(3):
+                logits, caches = tfm.lm_decode_step(params, cfg, caches, toks[:, 12 + i].to(dev), 12 + i)
+                out[f"decode{i}"] = logits.cpu()
+            out.update({k: v.cpu() for k, v in caches.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=0, atol=1e-4, err_msg=k)

@@ -1,25 +1,18 @@
-"""The port's flat graphs (Vamana, NSG), the algorithm registry, and every
-algorithm × backend build against the reference's, on the CPU.
+"""The port's flat graphs (Vamana, NSG) and the algorithm registry against
+the reference's, on the CPU.
 
-* Exactly representable inputs: integer rows in [−8, 8] with hand-made
-  coders (PQ with integer codebooks, SQ with s2 = 1, PCA with a zero mean
-  and identity columns; fp32 as is; Flash with the reference's coder, whose
-  distances are integer level sums). Every distance is an exact float32
-  integer, so HNSW (bulk, incremental), Vamana (incremental with and
-  without the second pass, bulk) and NSG (incremental with the reference's
-  k-NN graph carried across, bulk) must give bit-equal graphs, distances,
-  entries and n_dists over every backend, and equal search ids and exact
-  rerank distances (reconstruct rerank distances of decoded, non-integer
-  vectors: allclose at rtol 1e-5).
-* Random float inputs with fitted coders carried across: recall@10 within
-  0.02 of the reference's (the share of equal adjacency rows is printed:
-  float sums in another order may flip a near tie and the builds diverge
-  from there).
-* Flat ``flash_blocked`` builds and searches reach the fused beam; the
-  reference's NSG over the blocked mirror with ``knn_k == r_base`` is
-  reproduced bit for bit; flat ``add``/``delete``/``compact`` and the
-  reconstruct rerank equal the reference's; a segmented Vamana/SQ build
-  equals the reference's segment for segment, a routed ``add`` included.
+* The registry and the facade's flags; flat ``flash_blocked`` builds and
+  searches reach the fused beam; the reference's NSG over the blocked
+  mirror with ``knn_k == r_base`` is reproduced bit for bit.
+* Flat ``add``/``delete``/``compact`` and the reconstruct rerank equal the
+  reference's; a segmented Vamana/SQ build equals the reference's segment
+  for segment, a routed ``add`` included; ``build_vamana`` returns pass
+  1's account, as the reference does.
+
+The builds of every algorithm × strategy × backend are in
+``test_torch_flat_exact.py`` (exact inputs) and
+``test_torch_flat_float.py`` (float inputs); the shared inputs in
+``_flat_common.py``.
 """
 
 from __future__ import annotations
@@ -38,148 +31,12 @@ from repro.graph.index import AnnIndex as JIndex
 from repro.graph.nsg import build_nsg as j_build_nsg
 from repro.graph.segmented import SegmentedAnnIndex as JSeg
 from repro.graph.vamana import build_vamana as j_build_vamana
-from repro_torch.core import baselines as tbl
-from repro_torch.core import quantize as tqz
 from repro_torch.graph import backends as tbk
 from repro_torch.graph.engine import BuildParams
 from repro_torch.graph.nsg import build_nsg
 from repro_torch.graph.vamana import FlatIndex, build_vamana, medoid_id
 from repro_torch.index import AnnIndex, SegmentedAnnIndex
-from conftest import make_clustered
-
-KINDS = ("fp32", "pq", "sq", "pca", "flash", "flash_blocked")
-N, D, R = 400, 16, 12
-PARAMS = dict(r_upper=8, r_base=R, ef=24, batch=32, max_layers=2)
-FLASH_KW = dict(d_f=D, m_f=8, l_f=4, h=8, kmeans_iters=6)
-
-
-def _state(be) -> dict:
-    return {k: np.asarray(v) for k, v in be.state_dict().items()}
-
-
-def exact_pair(kind: str, x: np.ndarray):
-    """(reference backend, port backend) over integer rows ``x`` with one
-    state: hand-made coders for the baselines, the reference's fitted coder
-    for Flash."""
-    t = torch.from_numpy(x)
-    if kind.startswith("flash"):
-        kw = dict(FLASH_KW, r_for_blocked=R) if kind == "flash_blocked" else FLASH_KW
-        jb = jbk.make_backend(kind, jnp.asarray(x), jax.random.PRNGKey(0), **kw)
-        return jb, tbk.CLASSES[type(jb).__name__].from_state(_state(jb), device="cpu")
-    d = x.shape[1]
-    if kind == "fp32":
-        tb = tbk.FP32Backend(t)
-    elif kind == "pq":
-        cb = torch.from_numpy(np.random.default_rng(3).integers(-8, 9, (4, 16, d // 4)).astype(np.float32))
-        diff = cb[:, :, None, :] - cb[:, None, :, :]
-        coder = tbl.PQCoder(codebooks=cb, sdc=(diff * diff).sum(-1))
-        tb = tbk.PQBackend(coder, tbl.pq_encode(coder, t))
-    elif kind == "sq":
-        ones = torch.ones(d)
-        coder = tbl.SQCoder(tqz.SQParams(-8 * ones, 16 * ones, torch.tensor(8, dtype=torch.int32)), ones)
-        tb = tbk.SQBackend(coder, tbl.sq_encode(coder, t))
-    else:
-        coder = tbl.PCACoder(mean=torch.zeros(d), rot=torch.eye(d)[:, ::2].contiguous())
-        tb = tbk.PCABackend(coder, tbl.pca_encode(coder, t))
-    return jbk.CLASSES[type(tb).__name__].from_state(_state(tb)), tb
-
-
-@pytest.fixture(scope="module")
-def int_rows():
-    rng = np.random.default_rng(5)
-    return rng.integers(-8, 9, (N, D)).astype(np.float32), rng.integers(-8, 9, (24, D)).astype(np.float32)
-
-
-def _graph_arrays(state: dict, layered: bool) -> dict:
-    keys = ("adj0", "adj0_d", "adj_up", "adj_up_d", "levels") if layered else ("adj", "adj_d")
-    return {k: np.asarray(state[k]) for k in keys + ("entry",)}
-
-
-CASES = [
-    ("hnsw", "bulk", {}), ("hnsw", "incremental", {}),
-    ("vamana", "incremental", {"two_pass": True}), ("vamana", "incremental", {"two_pass": False}),
-    ("vamana", "bulk", {}), ("nsg", "incremental", {}), ("nsg", "bulk", {}),
-]
-
-
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("algo,strategy,kw", CASES, ids=[f"{a}-{s}-{k}" for a, s, k in CASES])
-def test_build_bit_equal_on_exact_inputs(int_rows, kind, algo, strategy, kw):
-    x, _ = int_rows
-    jb, tb = exact_pair(kind, x)
-    params = dict(PARAMS, alpha=1.2 if algo == "vamana" else 1.0)
-    if algo == "nsg" and strategy == "incremental":
-        # the builders themselves, with the reference's k-NN graph carried
-        jg, knn = j_build_nsg(jnp.asarray(x), jb, params=JParams(**params), knn_k=8)
-        tg, _ = build_nsg(torch.from_numpy(x), tb, params=BuildParams(**params), knn_k=8,
-                          knn_adj=torch.from_numpy(np.array(knn)))
-        for f in ("adj", "adj_d", "entry"):
-            np.testing.assert_array_equal(np.asarray(getattr(tg, f)), np.asarray(getattr(jg, f)), err_msg=f)
-        np.testing.assert_array_equal(tg.backend.state_dict().get("nbr_codes", 0),
-                                      np.asarray(jg.backend.state_dict().get("nbr_codes", 0)))
-        return
-    akw = dict(kw, **({"knn_k": 8} if algo == "nsg" else {}))
-    jidx = JIndex.build(jnp.asarray(x), algo=algo, backend=jb, params=JParams(**params),
-                        strategy=strategy, **akw)
-    tidx = AnnIndex.build(x, algo=algo, backend=tb, params=BuildParams(**params), strategy=strategy,
-                          device="cpu", **akw)
-    jmeta, jarr = jidx.export_state()
-    tmeta, tarr = tidx.export_state()
-    assert tmeta == jmeta
-    want, got = _graph_arrays(jarr, jidx.layered), _graph_arrays(tarr, tidx.layered)
-    for key in want:
-        assert got[key].dtype == want[key].dtype, key
-        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-    for key in tarr:
-        if key.startswith("backend."):
-            np.testing.assert_array_equal(tarr[key], np.asarray(jarr[key]), err_msg=key)
-    if jidx.last_stats is not None:  # the reference's NSG reports no stats
-        assert tidx.last_stats.n_dists == float(jidx.last_stats.n_dists)
-        assert list(tidx.last_stats.phases) == [float(v) for v in np.asarray(jidx.last_stats.phases)]
-    _, queries = int_rows
-    for rerank in (True, "reconstruct"):
-        a = tidx.search(queries, k=8, ef=32, width=2, rerank=rerank)
-        b = jidx.search(jnp.asarray(queries), k=8, ef=32, width=2, rerank=rerank)
-        np.testing.assert_array_equal(a.ids.numpy(), np.asarray(b.ids))
-        assert a.n_scan == int(b.n_scan)
-        if rerank is True:  # exact squared L2 of integer rows
-            np.testing.assert_array_equal(a.dists.numpy(), np.asarray(b.dists))
-        else:  # decoded vectors are not integers: float sums, allclose
-            np.testing.assert_allclose(a.dists.numpy(), np.asarray(b.dists), rtol=1e-5, atol=1e-4)
-
-
-def _recall(ids: np.ndarray, gt: np.ndarray) -> float:
-    return float(np.mean([len(set(a) & set(b)) / gt.shape[1] for a, b in zip(ids, gt)]))
-
-
-@pytest.fixture(scope="module")
-def float_sets():
-    x = make_clustered(900, 24, seed=21)
-    data, queries = x[:860], x[860:]
-    d2 = ((queries[:, None, :] - data[None]) ** 2).sum(-1)
-    return data, queries, np.argsort(d2, axis=1, kind="stable")[:, :10]
-
-
-FLOAT_KW = {"fp32": {}, "pq": dict(m=6, l_pq=5, kmeans_iters=6), "sq": dict(bits=8),
-            "pca": dict(alpha=0.9), "flash": dict(d_f=16, m_f=8, kmeans_iters=6),
-            "flash_blocked": dict(d_f=16, m_f=8, kmeans_iters=6, r_for_blocked=R)}
-
-
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("algo", ["hnsw", "vamana", "nsg"])
-def test_build_recall_on_float_inputs(float_sets, kind, algo):
-    data, queries, gt = float_sets
-    jb = jbk.make_backend(kind, jnp.asarray(data), jax.random.PRNGKey(0), **FLOAT_KW[kind])
-    tb = tbk.CLASSES[type(jb).__name__].from_state(_state(jb), device="cpu")
-    params = dict(PARAMS, alpha=1.2 if algo == "vamana" else 1.0)
-    jidx = JIndex.build(jnp.asarray(data), algo=algo, backend=jb, params=JParams(**params))
-    tidx = AnnIndex.build(data, algo=algo, backend=tb, params=BuildParams(**params), device="cpu")
-    key = "adj0" if algo == "hnsw" else "adj"
-    same = float((tidx.export_state()[1][key] == np.asarray(jidx.export_state()[1][key])).all(1).mean())
-    r_t = _recall(tidx.search(queries, k=10, ef=32).ids.numpy(), gt)
-    r_j = _recall(np.asarray(jidx.search(jnp.asarray(queries), k=10, ef=32).ids), gt)
-    print(f"{algo}/{kind}: recall@10 port {r_t:.4f} reference {r_j:.4f}, equal rows {same:.4f}")
-    assert abs(r_t - r_j) <= 0.02
+from _flat_common import D, N, PARAMS, R, _state, exact_pair, int_rows  # noqa: F401 (fixture)
 
 
 def test_registry_and_facade_flags(int_rows):
