@@ -211,6 +211,29 @@ non-zero and no result line is printed):
             side again with TF32 on is printed as the control. No kernel
             of the repo runs here: the products and attention are plain
             PyTorch, as the reference computes them outside Pallas.
+14. lm_training  the LM family trained (``repro_torch.train.train``, the
+            donated step, over ``transformer.lm_loss``) at full width on
+            ``lm_batch`` data at S = 4,096 (``train_4k``), seeded random
+            weights, bf16 compute, remat on, ``lm_opt_cfg``'s moments, lr
+            3e-4 constant after 2 warm-up steps, 10 steps: llama3.2-3b (28
+            layers, B 1), qwen1.5-0.5b (24 layers, 2 microbatches of 2),
+            moonshot-v1-16b-a3b cut to 5 layers (1 dense + 4 MoE) and
+            deepseek-v3-671b cut to its 3 dense MLA layers and the MTP
+            block (B 1 each). Per config: s per step (median of steps
+            3–10), tokens/s, model FLOPs/s over the dense bf16 peak,
+            peak memory, the losses and a profiler window over 2 more
+            steps. (a) The loss falls (the mean of the last 3 steps below
+            step 1) and every loss and grad_norm is finite. (b) One float32
+            step (float32 storage too, TF32 off) on the card against the
+            CPU from one set of weights and one batch, on the five reduced
+            configs, moonshot at capacity factor 1.0 (tokens drop) and
+            llama3.2-3b's full width at depth 2: the loss, each metric,
+            grad_norm and every parameter and moment leaf after the step
+            within ``LM_TRAIN_CARD_RTOL`` of the tensor's largest
+            magnitude (a parameter within 2·lr more); the card's step
+            again with TF32 on must exceed it. One line per config
+            (``lm_training_cell``), then the phase's. No kernel of the
+            repo runs here either.
 
 Launch counts are zeroed just before each path (the main path: phases 3–4;
 the incremental path and the bulk build beside it: phase 6, each counted
@@ -220,7 +243,8 @@ baselines and generality paths: phases 7b and 7c; the scale-out path:
 phases 8–10; the retrieval path: phase 11; the training path: phase 12
 (b)–(d)) and read just after it;
 the script fails if a kernel of a path never launched there. The LM
-serving path (phase 13) has no kernel of the repo to count. The main
+serving and training paths (phases 13 and 14) have no kernel of the repo
+to count. The main
 path's M = 16 coder must read its mirror as 8-byte words on every launch
 (``launches["mirror_*"]``). ``sq_l2`` and ``flash_expand`` are on no path:
 phase 2 alone runs them (and ``flash_expand`` the loop that ``flash_beam``
@@ -232,6 +256,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
+import itertools
 import json
 import os
 import shutil
@@ -306,15 +332,17 @@ def device_events(prof) -> list:
     return [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
 
 
-def profiled(fn, reps: int = 1, cpu: bool = True):
+def profiled(fn, reps: int = 1, cpu: bool = True, warm: bool = True):
     """Run ``fn`` ``reps`` times under ``torch.profiler`` (CUDA activity, and
-    CPU activity unless ``cpu`` is False) between two synchronizations:
-    (profile, host ms of the window), or (None, the error) where the profiler
+    CPU activity unless ``cpu`` is False) between two synchronizations,
+    after one call outside the window unless ``warm`` is False: (profile,
+    host ms of the window), or (None, the error) where the profiler
     cannot start here. An error raised by ``fn`` itself propagates."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
     with contextlib.ExitStack() as stack:
@@ -344,12 +372,14 @@ def profiler_kernel_ms(fn, kernel: str, reps: int = 5):
 PRODUCT_KERNEL_WORDS = ("gemm", "nvjet", "xmma", "cutlass")
 
 
-def device_window(fn, cpu: bool = True) -> dict:
-    """One call of ``fn`` under the profiler: the window's host ms, the
-    device busy share (kernel time over the window), the device ms in
-    matrix-product kernels and the top five kernels by device time. ``cpu=False`` records the CUDA activity alone
-    (a window of ~10⁵ launches takes minutes to parse with the CPU ops)."""
-    prof, wall = profiled(fn, cpu=cpu)
+def device_window(fn, cpu: bool = True, reps: int = 1, warm: bool = True) -> dict:
+    """``reps`` calls of ``fn`` under the profiler (after one outside it
+    unless ``warm`` is False): the window's host ms, the device busy share
+    (kernel time over the window), the device ms in matrix-product kernels
+    and the top five kernels by device time. ``cpu=False`` records the CUDA
+    activity alone (a window of ~10⁵ launches takes minutes to parse with
+    the CPU ops)."""
+    prof, wall = profiled(fn, reps=reps, cpu=cpu, warm=warm)
     if prof is None:
         return {"error": wall}
     by_name: dict = {}
@@ -2204,16 +2234,6 @@ LM_DECODE_ATOL = 0.25
 LM_CARD_ATOL = 1e-4
 
 
-def lm_decode_flops(cfg, batch: int, s_max: int) -> float:
-    """The reference's decode model FLOPs (``launch/steps.py:219-226``):
-    2·active params per token plus attention against the whole cache."""
-    if cfg.attn == "mla":
-        attn = 2.0 * batch * s_max * cfg.n_heads * (cfg.kv_lora_rank * 2 + cfg.qk_rope_dim) * cfg.n_layers
-    else:
-        attn = 4.0 * batch * s_max * cfg.n_heads * cfg.head_dim * cfg.n_layers
-    return 2.0 * cfg.active_param_count() * batch + attn
-
-
 def lm_card_vs_cpu(dev, make_cfg, label: str, prompt: int, atol: float) -> dict:
     """Check (b): one set of float32 weights on the card and the CPU; the
     prefill logits and caches and 4 decode steps (fixed tokens) allclose.
@@ -2273,6 +2293,7 @@ def lm_cell(dev, arch: str, depth, batch: int, prompt: int, n_decode: int, s_max
     import torch
 
     from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import lm_decode_flops, lm_prefill_flops
     from repro_torch.models import transformer as tfm
     from repro_torch.utils import sync, tree_bytes, tree_map
 
@@ -2307,7 +2328,7 @@ def lm_cell(dev, arch: str, depth, batch: int, prompt: int, n_decode: int, s_max
     prefill_s = time.perf_counter() - t0
     if tuple(logits.shape) != (batch, cfg.vocab) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{arch}: prefill logits malformed")
-    flops = 2.0 * cfg.active_param_count() * batch * prompt
+    flops = lm_prefill_flops(cfg, batch, prompt)
     out["prefill"] = {"s": prefill_s, "tokens_per_s": batch * prompt / prefill_s,
                       "model_tflops_per_s": flops / prefill_s / 1e12,
                       "share_of_bf16_peak": flops / prefill_s / BF16_TENSOR_OPS_PER_S}
@@ -2399,6 +2420,215 @@ def lm_serving_path(dev, t_start: float) -> None:
     out["card_vs_cpu"] = card_cpu
     out["card_vs_cpu_s"] = time.perf_counter() - t0
     emit({"phase": "lm_serving", **out, "phase_s": time.perf_counter() - t_phase,
+          "elapsed_s": time.perf_counter() - t_start})
+
+
+# ---------------------------------------------------------------------------
+# The LM training path (phase 14)
+# ---------------------------------------------------------------------------
+
+#: the cells (PERF.md §4 gives the cuts): (arch, depth or None for the full
+#: depth, rows per microbatch, microbatches)
+LM_TRAIN_CELLS = (
+    ("llama3.2-3b", None, 1, 1),
+    ("qwen1.5-0.5b", None, 2, 2),
+    ("moonshot-v1-16b-a3b", 5, 1, 1),
+    ("deepseek-v3-671b", 3, 1, 1),
+)
+LM_TRAIN_SEQ = 4096  # train_4k's seq_len (src/repro/configs/registry.py:31)
+LM_TRAIN_STEPS = 10  # 12 cut to keep the whole smoke inside its limit (PERF.md §4)
+LM_TRAIN_PROFILED = 2  # steps under the profiler, after the timed ones
+#: card against CPU, float32 storage and compute, TF32 off, one train step:
+#: every compared tensor (the loss, each metric, grad_norm, and every
+#: parameter and moment leaf after the step) within this share of its
+#: largest magnitude; a parameter also within 2·lr, as a first AdamW step
+#: moves an element whose gradient is float noise by up to lr either way
+#: (qwen's zero-initialised biases after one step are that step alone)
+LM_TRAIN_CARD_RTOL = 1e-4
+
+
+def lm_train_opt(cfg):
+    """The phase's AdamW: ``lm_opt_cfg``'s moments, lr 3e-4 held constant
+    after 2 warm-up steps."""
+    from repro_torch.launch.steps import lm_opt_cfg
+
+    return dataclasses.replace(lm_opt_cfg(cfg), lr=3e-4, warmup_steps=2, schedule="constant")
+
+
+def lm_train_card_vs_cpu(dev, make_cfg, label: str, batch: int, seq: int) -> dict:
+    """Check (b): one train step (``lm_train_step``, functional) in float32,
+    parameters stored in float32 too, from one set of weights and one
+    ``lm_batch`` on the card and the CPU. Each compared tensor's largest
+    difference over its bound (``LM_TRAIN_CARD_RTOL`` of its largest
+    magnitude, plus 2·lr for a parameter) must stay within 1; the card's
+    step again with TF32 on (the control) must exceed it somewhere."""
+    import torch
+
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch.steps import lm_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.train_loop import TrainConfig, init_train_state
+    from repro_torch.utils import tree_leaves, tree_map
+
+    t_check = time.perf_counter()
+    cfg = dataclasses.replace(make_cfg(), dtype=torch.float32, param_dtype=torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+    cpu = tree_map(lambda t: t.cpu(), tfm.init_lm(gen, cfg, device=dev))  # drawn on the card: faster
+    data = lm_batch(LM_SEED, 0, 0, batch=batch, seq=seq, vocab=cfg.vocab, device="cpu")
+    tc = TrainConfig(opt=lm_train_opt(cfg))
+    step = lm_train_step(cfg, tc)
+
+    def run(d) -> dict:
+        params = cpu if d.type == "cpu" else tree_map(lambda t: t.to(d), cpu)
+        tree, metrics = step(init_train_state(params, tc).tree(), {k: v.to(d) for k, v in data.items()})
+        opt = tree["opt_state"]
+        return {"metrics": metrics, "params": tree_leaves(tree["params"]),
+                "moments": tree_leaves(opt.mu) + tree_leaves(opt.nu)}
+
+    def ratios(got: dict, want: dict) -> dict:
+        """Each group's largest difference over its bound."""
+        lr = float(want["metrics"]["lr"])
+
+        def ratio(a, b, atol: float = 0.0) -> float:
+            a, b = a.to(torch.float64), b.to(torch.float64)
+            return float((a - b).abs().max()) / (LM_TRAIN_CARD_RTOL * float(b.abs().max()) + atol or 1e-30)
+
+        out = {k: ratio(got["metrics"][k], v) for k, v in want["metrics"].items()}
+        out["params"] = max(ratio(a, b, 2 * lr) for a, b in zip(got["params"], want["params"]))
+        out["moments"] = max(ratio(a, b) for a, b in zip(got["moments"], want["moments"]))
+        return out
+
+    t0 = time.perf_counter()
+    want = run(torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    want = {k: tree_map(lambda t: t.to(dev), v) for k, v in want.items()}  # compared on the card
+    sound = ratios(run(dev), want)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = ratios(run(dev), want)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    if not all(np.isfinite(v) and v <= 1.0 for v in sound.values()):
+        raise AssertionError(f"lm train step card vs CPU ({label}): difference over bound {sound}")
+    if not max(control.values()) > 1.0:
+        raise AssertionError(f"lm train step card vs CPU ({label}): the bound does not tell TF32 ({control}) "
+                             "from float32")
+    return {"difference_over_bound": sound, "rtol": LM_TRAIN_CARD_RTOL,
+            "tf32_control_difference_over_bound": control, "loss": float(want["metrics"]["loss"]),
+            "cpu_step_s": cpu_s, "s": time.perf_counter() - t_check}
+
+
+def lm_train_cell(dev, arch: str, depth, rows: int, microbatches: int) -> dict:
+    """One config at full width trained by ``train`` (the donated step) for
+    ``LM_TRAIN_STEPS`` steps of ``lm_batch`` data at S = 4,096, then a
+    profiler window over ``LM_TRAIN_PROFILED`` more. Returns the cell's
+    numbers; the loss must fall and stay finite."""
+    t_cell = time.perf_counter()
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import microbatch_reshape, prefetch, sharded_batches
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch.steps import lm_loss_fn, lm_train_flops, lm_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.train_loop import TrainConfig, train
+    from repro_torch.utils import sync, tree_bytes
+
+    cfg = get_arch(arch).make_full()
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    tc = TrainConfig(opt=lm_train_opt(cfg), microbatches=microbatches, log_every=1,
+                     checkpoint_every=LM_TRAIN_STEPS + 1)
+    batch = rows * microbatches
+    out = {"arch": arch, "n_layers": cfg.n_layers, "n_moe_layers": cfg.n_moe_layers, "remat": cfg.remat,
+           "batch": batch, "microbatches": microbatches, "seq": LM_TRAIN_SEQ,
+           "params_b": cfg.param_count() / 1e9, "active_params_b": cfg.active_param_count() / 1e9,
+           "param_dtype": str(cfg.param_dtype), "moments": tc.opt.state_dtype}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+    params = tfm.init_lm(gen, cfg, device=dev)
+    sync(dev)
+    out["init_s"] = time.perf_counter() - t0
+    out["params_gb"] = tree_bytes(params) / 1e9
+
+    def make_batch(step: int, shard: int) -> dict:
+        b = lm_batch(LM_SEED, step, shard, batch=batch, seq=LM_TRAIN_SEQ, vocab=cfg.vocab, device=dev)
+        return microbatch_reshape(b, microbatches) if microbatches > 1 else b
+
+    data = prefetch(itertools.islice(sharded_batches(make_batch, shard_id=0), LM_TRAIN_STEPS + LM_TRAIN_PROFILED))
+    state, history = train(lm_loss_fn(cfg), params, data, tc=tc, n_steps=LM_TRAIN_STEPS, log_fn=lambda _: None)
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    if len(losses) != LM_TRAIN_STEPS or not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"{arch}: a loss or grad_norm is not finite: {losses} {norms}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"{arch}: the loss did not fall: {losses}")
+    step_s = float(np.median([1.0 / h["steps_per_s"] for h in history[2:]]))
+    flops = lm_train_flops(cfg, batch, LM_TRAIN_SEQ)
+    out.update({"loss": losses, "grad_norm_first_last": [norms[0], norms[-1]],
+                "s_per_step_median_from_3": step_s, "s_per_step_first": 1.0 / history[0]["steps_per_s"],
+                "tokens_per_s": batch * LM_TRAIN_SEQ / step_s, "model_tflops_per_s": flops / step_s / 1e12,
+                "share_of_bf16_peak": flops / step_s / BF16_TENSOR_OPS_PER_S,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if state.params is not params:
+        raise AssertionError(f"{arch}: train(donate=True) did not train the caller's parameters")
+
+    # where a step's time goes: a profiler window over 2 more donated steps
+    step = lm_train_step(cfg, tc, donate=True)
+    tree = [state.tree()]
+
+    def one_step():
+        tree[0], _ = step(tree[0], next(data))
+        sync(dev)
+
+    t0 = time.perf_counter()
+    out["profile_2_steps"] = device_window(one_step, cpu=False, reps=LM_TRAIN_PROFILED, warm=False)
+    out["profile_s"] = time.perf_counter() - t0
+    del params, state, tree, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cell_s"] = time.perf_counter() - t_cell
+    return out
+
+
+def lm_training_path(dev, t_start: float) -> None:
+    """Phase 14: the LM family trained at full width (``LM_TRAIN_CELLS``),
+    then check (b), the train step on the card against the CPU in float32."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"allocated_gb_at_start": torch.cuda.memory_allocated() / 1e9, "steps": LM_TRAIN_STEPS, "cells": {}}
+    for cell in LM_TRAIN_CELLS:
+        row = lm_train_cell(dev, *cell)
+        emit({"phase": "lm_training_cell", **row})
+        out["cells"][row["arch"]] = {k: row[k] for k in ("s_per_step_median_from_3", "tokens_per_s",
+                                                         "share_of_bf16_peak", "peak_memory_gb")}
+    t0 = time.perf_counter()
+    card_cpu = {}
+    for arch in LM_ARCHS:
+        card_cpu[arch] = lm_train_card_vs_cpu(dev, get_arch(arch).make_reduced, arch, 2, 16)
+
+    def dropping():
+        cfg = get_arch("moonshot-v1-16b-a3b").make_reduced()
+        return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=1.0))
+
+    card_cpu["moonshot-v1-16b-a3b@cf1"] = lm_train_card_vs_cpu(dev, dropping, "moonshot@cf1", 2, 16)
+    llama2 = lambda: dataclasses.replace(get_arch("llama3.2-3b").make_full(), n_layers=2, dtype=torch.float32)
+    card_cpu["llama3.2-3b@2"] = lm_train_card_vs_cpu(dev, llama2, "llama3.2-3b@2", 1, 64)
+    out["card_vs_cpu"] = card_cpu
+    out["card_vs_cpu_s"] = time.perf_counter() - t0
+    emit({"phase": "lm_training", **out, "phase_s": time.perf_counter() - t_phase,
           "elapsed_s": time.perf_counter() - t_start})
 
 
@@ -3076,6 +3306,9 @@ def main() -> int:
 
     # ---- 13. the LM family serving prefill and decode ------------------------
     lm_serving_path(dev, t_start)
+
+    # ---- 14. the LM family training -------------------------------------------
+    lm_training_path(dev, t_start)
 
     rows = []
     for name, key in (("flash_round", "flash_round"), ("flash_expand", "flash_expand_w4"),

@@ -1,9 +1,17 @@
-"""Deterministic synthetic vectors (numpy), the same generator the reference
-package uses so both packages see identical data from one seed."""
+"""Deterministic synthetic data: the vectors (numpy, the same generator the
+reference package uses, so both packages see identical data from one seed)
+and the LM token stream (reference: ``repro.data.synthetic``).
+
+A batch is a pure function of (seed, step, shard), so any host, or a
+restarted one, draws exactly the same batch.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from repro_torch.utils import resolve_device
 
 
 def vector_dataset(
@@ -16,3 +24,24 @@ def vector_dataset(
     x = centers[rng.integers(0, n_clusters, n)]
     x += rng.normal(size=(n, d)).astype(np.float32) * scales
     return x
+
+
+def _generator(seed: int, step: int, shard: int, device: torch.device) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, step, shard) alone."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(np.random.SeedSequence((seed, step, shard)).generate_state(1, np.uint64)[0]))
+    return gen
+
+
+def lm_batch(seed: int, step: int, shard: int, *, batch: int, seq: int, vocab: int,
+             device: str | torch.device = "cuda") -> dict:
+    """Zipf-ish token stream and next-token labels, int32 (B, S) each on
+    ``device``: ``clip(int(u^-0.7 − 1), 0, vocab − 1)`` with u uniform on
+    [1e-6, 1), so token 0 takes a share of 1 − 2^(−1/0.7) ≈ 0.628. The
+    reference draws u from ``jax.random``; this draw has its distribution,
+    not its bits."""
+    dev = resolve_device(device)
+    u = torch.rand((batch, seq + 1), generator=_generator(seed, step, shard, dev), device=dev)
+    u = torch.clamp_min(u * (1.0 - 1e-6) + 1e-6, 1e-6)
+    toks = torch.clamp((u.pow(-0.7) - 1).to(torch.int32), 0, vocab - 1)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

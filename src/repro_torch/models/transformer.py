@@ -5,6 +5,7 @@ Entry points (the reference's ``repro.models.transformer``):
 
   init_lm(gen, cfg, device=)               parameters (layer-stacked tree)
   lm_forward(params, cfg, tokens)          logits (B, S, V) and MoE aux
+  lm_loss(params, cfg, tokens, labels)     next-token CE (+ MoE aux, + MTP)
   make_caches(cfg, batch, s_max, device=)  zeroed KV caches
   lm_prefill(params, cfg, tokens)          last logits + caches filled to S
   lm_decode_step(params, cfg, caches, token, pos)   one token per row
@@ -14,7 +15,8 @@ stacked on a leading layer axis in ``blocks_dense`` (the first
 ``moe_first_dense`` layers of an MoE model, or every layer of a dense one)
 and ``blocks_moe`` (None where a model has none), and ``mtp_proj`` /
 ``mtp_block`` when ``mtp_depth``. Layers run as a Python loop over the
-stacked axis. :func:`params_from_jax` and :func:`params_to_jax` carry the
+stacked axis (``cfg.remat`` rematerialises each layer in the backward).
+:func:`params_from_jax` and :func:`params_to_jax` carry the
 tree across bit for bit.
 
 Compute dtype: each block's float32 weights are rounded to ``cfg.dtype``
@@ -24,10 +26,9 @@ once, at load, which is the same arithmetic; a serving caller holds that
 copy instead of the float32 masters.
 
 The decode step writes its position into ``caches`` in place and returns
-the same tensors (the reference's jitted step donates them). Training
-(``lm_loss`` with MTP and the MoE aux losses) is ROADMAP queue 1, item 9;
-the parameter and cache shardings (``lm_param_specs``, ``cache_specs``)
-are item 7.
+the same tensors (the reference's jitted step donates them). The
+parameter and cache shardings (``lm_param_specs``, ``cache_specs``) are
+ROADMAP queue 1, item 7.
 """
 
 from __future__ import annotations
@@ -38,10 +39,11 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoEConfig, init_moe, moe_forward
-from repro_torch.utils import resolve_device, tree_map
+from repro_torch.utils import resolve_device, tree_leaves, tree_map, tree_unflatten
 
 Params = dict[str, Any]
 
@@ -247,12 +249,17 @@ def serving_params(params: Params, cfg: TransformerConfig) -> Params:
 
 
 def _layers(params: Params, cfg: TransformerConfig):
-    """(layer index, block, is MoE) over the stacked blocks in order."""
+    """(layer index, block, is MoE) over the stacked blocks in order. Each
+    stacked leaf is unbound once per call: the backward of ``t[i]`` per
+    layer would allocate and add a zero tensor the size of the whole
+    stacked leaf for every layer, ``unbind``'s is one ``stack``. The block
+    holds the stored weights; callers round them with ``_cast_block``."""
     nd = cfg.n_dense_layers
     for key, n, moe, base in (("blocks_dense", nd, False, 0), ("blocks_moe", cfg.n_moe_layers, True, nd)):
         blocks = params[key]
+        per_leaf = [torch.unbind(t, 0) for t in tree_leaves(blocks)]
         for i in range(n):
-            yield base + i, _cast_block(tree_map(lambda t: t[i], blocks), cfg.dtype), moe
+            yield base + i, tree_unflatten(blocks, [views[i] for views in per_leaf]), moe
 
 
 def _ffn(blk: Params, x: torch.Tensor, cfg: TransformerConfig, moe: bool):
@@ -273,6 +280,25 @@ def _attn_forward(blk: Params, h: torch.Tensor, positions: torch.Tensor, cfg: Tr
                          head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, block_q=cfg.block_q)
 
 
+def _block_forward(blk: Params, x: torch.Tensor, positions: torch.Tensor, cfg: TransformerConfig, moe: bool):
+    """One block over its stored weights (rounded here, so a rematerialised
+    block keeps no rounded copy): (x out, aux)."""
+    blk = _cast_block(blk, cfg.dtype)
+    x = x + _attn_forward(blk, L.rms_norm(x, blk["ln1"], cfg.norm_eps), positions, cfg)
+    return _ffn(blk, x, cfg, moe)
+
+
+def _block_remat(blk: Params, x: torch.Tensor, positions: torch.Tensor, cfg: TransformerConfig, moe: bool):
+    """``_block_forward``, rematerialised in the backward where ``cfg.remat``
+    (the reference's ``jax.checkpoint`` per scanned block): only the
+    block's input is kept. The blocks draw no random numbers, and the MoE
+    routing (``topk_first``, a stable sort) recomputes to the same ids."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(_block_forward, blk, x, positions, cfg, moe, use_reentrant=False,
+                          preserve_rng_state=False)
+    return _block_forward(blk, x, positions, cfg, moe)
+
+
 def _embed(params: Params, cfg: TransformerConfig, tokens: torch.Tensor):
     b, s = tokens.shape
     x = params["embed"][tokens].to(cfg.dtype)
@@ -284,23 +310,57 @@ def _logits(params: Params, cfg: TransformerConfig, x: torch.Tensor) -> torch.Te
     return L.matmul(x, params["head"].to(cfg.dtype)).to(torch.float32)
 
 
-def lm_forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor):
-    """tokens (B, S) -> (logits (B, S, V) float32, aux): aux holds each MoE
-    loss averaged over the MoE layers, as ``moe/load_balance`` and
-    ``moe/router_z``."""
+def _trunk(params: Params, cfg: TransformerConfig, tokens: torch.Tensor):
+    """Embedding and every block: (hidden before ``ln_f`` (B, S, D), aux).
+    aux holds each MoE loss averaged over the MoE layers, as
+    ``moe/load_balance`` and ``moe/router_z`` (the reference's names; its
+    dense blocks add none)."""
     x, positions = _embed(params, cfg, tokens)
     auxs: dict[str, list] = {}
     for _, blk, moe in _layers(params, cfg):
-        x = x + _attn_forward(blk, L.rms_norm(x, blk["ln1"], cfg.norm_eps), positions, cfg)
-        x, aux = _ffn(blk, x, cfg, moe)
+        x, aux = _block_remat(blk, x, positions, cfg, moe)
         for k, v in aux.items():
             auxs.setdefault(f"moe/{k}", []).append(v)
-    return _logits(params, cfg, x), {k: torch.stack(v).mean() for k, v in auxs.items()}
+    return x, {k: torch.stack(v).mean() for k, v in auxs.items()}
 
 
-def lm_loss(*args, **kwargs):
-    raise NotImplementedError("LM training (lm_loss with MTP and the MoE aux losses) is not ported yet "
-                              "(ROADMAP queue 1, item 9: LM training)")
+def lm_forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor):
+    """tokens (B, S) -> (logits (B, S, V) float32, aux)."""
+    h, aux = _trunk(params, cfg, tokens)
+    return _logits(params, cfg, h), aux
+
+
+def _token_log_likelihood(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """log softmax(logits)[label] per position, (B, S) float32."""
+    return torch.log_softmax(logits, dim=-1).gather(-1, labels.long()[..., None])[..., 0]
+
+
+def lm_loss(params: Params, cfg: TransformerConfig, tokens: torch.Tensor, labels: torch.Tensor, *,
+            lb_coef: float = 0.01, z_coef: float = 1e-4):
+    """Next-token cross entropy over the float32 logits, plus the MoE aux
+    losses (``lb_coef``·load balance + ``z_coef``·router z) and, with
+    ``cfg.mtp_depth``, deepseek-v3's multi-token prediction at weight 0.3:
+    one dense block over ``[h_t ; embed(t + 1)] @ mtp_proj`` predicts token
+    t + 2 through the shared ``ln_f`` and head, over the positions below
+    S − 2 (the last two labels are rolled in from the front). Returns
+    (loss, metrics): ``ce``, the aux, and ``mtp_ce`` with MTP."""
+    h, aux = _trunk(params, cfg, tokens)
+    loss = -_token_log_likelihood(_logits(params, cfg, h), labels).mean()
+    metrics = {"ce": loss, **aux}
+    if "moe/load_balance" in aux:
+        loss = loss + lb_coef * aux["moe/load_balance"] + z_coef * aux["moe/router_z"]
+    if cfg.mtp_depth:
+        b, s = tokens.shape
+        nxt = params["embed"][torch.roll(tokens, -1, dims=1)].to(cfg.dtype)
+        mtp_in = L.matmul(torch.cat([h, nxt], dim=-1), params["mtp_proj"].to(cfg.dtype))
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        mtp_h, _ = _block_remat(params["mtp_block"], mtp_in, positions, cfg, False)
+        ll2 = _token_log_likelihood(_logits(params, cfg, mtp_h), torch.roll(labels, -1, dims=1))
+        mask = torch.arange(s, device=tokens.device) < s - 2
+        mtp_loss = -(ll2 * mask).sum() / max(max(s - 2, 0) * b, 1)
+        loss = loss + 0.3 * mtp_loss
+        metrics["mtp_ce"] = mtp_loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +392,7 @@ def lm_prefill(params: Params, cfg: TransformerConfig, tokens: torch.Tensor, s_m
     x, positions = _embed(params, cfg, tokens)
     caches = make_caches(cfg, b, s if s_max is None else s_max, device=tokens.device)
     for layer, blk, moe in _layers(params, cfg):
+        blk = _cast_block(blk, cfg.dtype)
         h = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
         if cfg.attn == "mla":
             a, kv = L.mla_prefill(blk["attn"], h, positions, n_heads=cfg.n_heads, qk_nope_dim=cfg.qk_nope_dim,
@@ -357,6 +418,7 @@ def lm_decode_step(params: Params, cfg: TransformerConfig, caches: dict, token: 
     x = params["embed"][token][:, None, :].to(cfg.dtype)
     pos = L.decode_position(pos, x.device)
     for layer, blk, moe in _layers(params, cfg):
+        blk = _cast_block(blk, cfg.dtype)
         h = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
         if cfg.attn == "mla":
             a, _ = L.mla_decode(blk["attn"], h, caches["ckv"][layer], caches["krope"][layer], pos,

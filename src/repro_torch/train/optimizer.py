@@ -66,12 +66,25 @@ def schedule_lr(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState, params: Tree) -> tuple[Tree, AdamWState, dict]:
+#: elements per slice of a leaf's update: its float32 temporaries stay a
+#: few slices' worth, whatever the leaf's size (llama3.2-3b's stacked
+#: (28, 3072, 8192) leaves are 2.8 GB each)
+_SLICE = 1 << 26
+
+
+def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState, params: Tree, *,
+                 donate: bool = False) -> tuple[Tree, AdamWState, dict]:
     """One AdamW step. Returns (new_params, new_state, metrics) with
-    metrics ``grad_norm`` (before clipping) and ``lr``, 0-dim tensors."""
+    metrics ``grad_norm`` (before clipping) and ``lr``, 0-dim tensors.
+
+    The update runs over slices of each leaf in turn. With ``donate`` each
+    slice's new parameters and moments are written into the tensors of
+    ``params`` and ``state`` (which must be contiguous), and those trees
+    are returned: the reference's donated step, with no second copy of the
+    state alive. Elementwise arithmetic is the same on any slice, so both
+    forms give the same bits."""
     gnorm = tree_global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
-    grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)
     step = state.step + 1
     lr = schedule_lr(cfg, step)
     sf = step.to(torch.float32)
@@ -79,6 +92,7 @@ def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState, params: Tree)
     b2t = 1 - torch.pow(cfg.b2, sf)
 
     def upd(p, g, m, v):
+        g = g.to(torch.float32) * scale
         m2 = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * g
         v2 = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * g * g
         mhat = m2 / b1t
@@ -87,7 +101,20 @@ def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState, params: Tree)
         new_p = (p.to(torch.float32) - lr * delta).to(p.dtype)
         return new_p, m2.to(m.dtype), v2.to(v.dtype)
 
-    out = [upd(*a) for a in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.mu),
-                                 tree_leaves(state.nu))]
-    new_p, new_m, new_v = (tree_unflatten(params, [o[i] for o in out]) for i in range(3))
+    out = []
+    with torch.no_grad():
+        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.mu),
+                              tree_leaves(state.nu)):
+            dst = (p, m, v) if donate else tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                                                 for t in (p, m, v))
+            flat_dst = [t.view(-1) for t in dst]
+            flat_src = [t.reshape(-1) for t in (p, g, m, v)]
+            for lo in range(0, p.numel(), _SLICE):
+                for d, new in zip(flat_dst, upd(*(t[lo:lo + _SLICE] for t in flat_src))):
+                    d[lo:lo + _SLICE].copy_(new)
+            out.append(dst)
+    if donate:
+        new_p, new_m, new_v = params, state.mu, state.nu
+    else:
+        new_p, new_m, new_v = (tree_unflatten(params, [o[i] for o in out]) for i in range(3))
     return new_p, AdamWState(step=step, mu=new_m, nu=new_v), {"grad_norm": gnorm, "lr": lr}

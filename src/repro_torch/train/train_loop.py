@@ -12,8 +12,9 @@ step over a state tree ``{"params", "opt_state"[, "ef_state"]}``:
 
 ``train`` is the host loop: auto-resume from the latest checkpoint,
 periodic checkpoints, a log line with ``steps_per_s``. With ``donate=True``
-each step writes the new state into the old state's tensors, so the
-parameters the caller passed are updated in place.
+each step writes the new parameters and moments into the state's tensors,
+so the parameters the caller passed are updated in place and no second
+copy of the state is ever alive.
 """
 
 from __future__ import annotations
@@ -68,31 +69,36 @@ def init_train_state(params: Tree, tc: TrainConfig) -> TrainState:
 
 
 def value_and_grad(loss_fn: LossFn, params: Tree, batch) -> tuple[torch.Tensor, dict, Tree]:
-    """(loss, metrics, grads) of ``loss_fn`` at ``params``; a parameter the
-    loss does not reach gets a zero gradient."""
+    """(loss, metrics, grads) of ``loss_fn`` at ``params``, loss and metrics
+    detached; a parameter the loss does not reach gets a zero gradient."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-    return loss.detach(), metrics, tree_unflatten(params, grads)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, tree_unflatten(params, grads)
 
 
-def make_train_step(loss_fn: LossFn, tc: TrainConfig):
+def make_train_step(loss_fn: LossFn, tc: TrainConfig, *, donate: bool = False):
     """Returns step(state_tree, batch) -> (state_tree, metrics).
 
     With ``tc.microbatches > 1`` every leaf of ``batch`` has a leading
-    microbatch axis of that size (``data.pipeline.microbatch_reshape``).
+    microbatch axis of that size (``data.pipeline.microbatch_reshape``);
+    the float32 sum starts from the first microbatch's gradients (the
+    reference adds them to zeros, which gives the same bits). With
+    ``donate`` the step writes the new parameters and moments into the
+    state's own tensors as the update reaches each leaf
+    (``adamw_update(donate=True)``), and returns the same trees.
     """
 
     def step(state_tree: dict, batch):
         params = state_tree["params"]
         opt_state: AdamWState = state_tree["opt_state"]
         if tc.microbatches > 1:
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
-            losses = []
+            grads, losses = None, []
             for i in range(tc.microbatches):
                 loss, _, g = value_and_grad(loss_fn, params, tree_map(lambda x, i=i: x[i], batch))
-                tree_map(lambda a, b: a.add_(b.to(torch.float32)), grads, g)
+                g = tree_map(lambda t: t.to(torch.float32), g)
+                grads = g if grads is None else tree_map(lambda a, b: a.add_(b), grads, g)
                 losses.append(loss)
             grads = tree_map(lambda g: g / tc.microbatches, grads)
             loss = torch.mean(torch.stack(losses))
@@ -107,21 +113,13 @@ def make_train_step(loss_fn: LossFn, tc: TrainConfig):
             qs, scales, new_ef = comp.compress_int8(grads, state_tree["ef_state"])
             grads = comp.decompress_int8(qs, scales)
 
-        new_params, new_opt, opt_metrics = adamw_update(tc.opt, grads, opt_state, params)
+        new_params, new_opt, opt_metrics = adamw_update(tc.opt, grads, opt_state, params, donate=donate)
         out = {"params": new_params, "opt_state": new_opt}
         if new_ef is not None:
             out["ef_state"] = new_ef
         return out, {"loss": loss, **metrics, **opt_metrics}
 
     return step
-
-
-def _write_into(old: Tree, new: Tree) -> Tree:
-    """Copy ``new``'s leaves into ``old``'s tensors (the donated step)."""
-    with torch.no_grad():
-        for a, b in zip(tree_leaves(old), tree_leaves(new)):
-            a.copy_(b)
-    return old
 
 
 def train(
@@ -150,14 +148,13 @@ def train(
         tree, start_step = ckpt_mod.restore_checkpoint(ckpt_dir, tree)
         log_fn(f"[train] resumed from step {start_step}")
 
-    step_fn = make_train_step(loss_fn, tc)
+    step_fn = make_train_step(loss_fn, tc, donate=donate)
     history = []
     saved = None
     t_last = time.perf_counter()
     for step in range(start_step, n_steps):
         batch = next(data_iter)
-        new_tree, metrics = step_fn(tree, batch)
-        tree = _write_into(tree, new_tree) if donate else new_tree
+        tree, metrics = step_fn(tree, batch)
         if (step + 1) % tc.log_every == 0 or step + 1 == n_steps:
             metrics = {k: float(v) for k, v in metrics.items()}
             dt = time.perf_counter() - t_last

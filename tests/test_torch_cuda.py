@@ -24,7 +24,8 @@ the two devices' query tables agree, and a snapshot of a card
 index loads back on the card searching identically. The BERT4Rec train
 step on the card agrees with the CPU's (the tolerance is in its test), and
 so do the LM family's prefill and decode at each reduced config (float32,
-atol 1e-4).
+atol 1e-4) and ``lm_loss`` with its gradients at two (the tolerances are
+in the test).
 """
 
 from __future__ import annotations
@@ -730,3 +731,38 @@ def test_cuda_lm_prefill_and_decode_equal_the_cpu(cuda_device, arch):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=0, atol=1e-4, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "deepseek-v3-671b"])
+def test_cuda_lm_loss_and_grads_equal_the_cpu(cuda_device, arch):
+    """``lm_loss`` (deepseek: MLA, MoE, MTP, bfloat16 storage) and its
+    gradients at the reduced config on the card and the CPU from one set of
+    weights and tokens, TF32 off: loss and metrics at rtol 1e-5, each
+    float32 gradient leaf within 1e-4 of its largest magnitude, each
+    bfloat16 leaf within 2⁻⁷ of it (one bfloat16 step; float32 sums in
+    another order)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import lm_loss_fn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.utils import tree_map, tree_paths
+
+    cfg = get_arch(arch).make_reduced()
+    cpu = tfm.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (2, 17)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        params = tree_map(lambda t, d=dev: t.to(d), cpu)
+        out[dev.type] = value_and_grad(lm_loss_fn(cfg), params, {k: v.to(dev) for k, v in batch.items()})
+    (lc, mc, gc), (lp, mp, gp) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(float(lc), float(lp), rtol=1e-5)
+    assert sorted(mc) == sorted(mp)
+    for k in mp:
+        np.testing.assert_allclose(float(mc[k]), float(mp[k]), rtol=1e-5, err_msg=k)
+    for (path, a), (_, b) in zip(tree_paths(gc), tree_paths(gp)):
+        assert a.dtype == b.dtype, path
+        rtol = 2.0 ** -7 if b.dtype == torch.bfloat16 else 1e-4
+        a, b = a.cpu().double(), b.double()
+        assert float((a - b).abs().max()) <= rtol * float(b.abs().max()), path

@@ -25,8 +25,8 @@ the reference's ``repro.models.transformer``, on the CPU.
 * ``init_lm``'s tree has ``jax.eval_shape(init_lm)``'s paths, shapes and
   dtypes; the five full and reduced configs equal the reference's field
   for field, with equal ``param_count`` and ``active_param_count``; the
-  registry's LM shapes are the reference's; ``lm_loss`` raises, naming
-  item 9.
+  registry's LM shapes are the reference's. ``lm_loss`` and training are
+  held by ``test_torch_lm_train.py``.
 """
 
 from __future__ import annotations
@@ -236,8 +236,3 @@ def test_configs_and_counts_match_reference(arch):
     assert treg.get_arch(arch).family == "lm"
     assert [(s.name, s.kind, s.dims) for s in treg.get_arch(arch).shapes] == [
         (s.name, s.kind, s.dims) for s in jreg.LM_SHAPES]
-
-
-def test_lm_loss_raises():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tt.lm_loss(None, treg.get_arch("llama3.2-3b").make_reduced(), None, None)
