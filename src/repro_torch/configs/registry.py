@@ -6,9 +6,11 @@ through ``models/transformer.py``) and the recsys model ``bert4rec``
 (serving and training, ``repro_torch.train``), each with its full and
 reduced configs and its assigned input shapes (the reference's
 ``configs/registry.py``). ``train_batch``'s 65,536 sessions are the
-reference's global batch; one card takes a cut of it per step. The GNN
-architectures raise ``NotImplementedError`` until they are ported
-(ROADMAP queue 1, item 9).
+reference's global batch; one card takes a cut of it per step. The four
+GNN architectures (``gatedgcn``, ``egnn``, ``nequip``, ``equiformer-v2``;
+``models/gnn/``, trained through ``launch/steps.gnn_train_step``) share
+``GNN_SHAPES``. ``flash-ann`` and ``assigned_cells`` raise
+``NotImplementedError`` until ROADMAP queue 1, item 9c ports them.
 """
 
 from __future__ import annotations
@@ -17,6 +19,10 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 from repro_torch.configs import lm_archs
+from repro_torch.models.gnn.egnn import EGNNConfig
+from repro_torch.models.gnn.equiformer_v2 import EquiformerV2Config
+from repro_torch.models.gnn.gatedgcn import GatedGCNConfig
+from repro_torch.models.gnn.nequip import NequIPConfig
 from repro_torch.models.recsys.bert4rec import Bert4RecConfig
 
 
@@ -32,6 +38,27 @@ LM_SHAPES = [
     ShapeSpec("prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}),
     ShapeSpec("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
     ShapeSpec("long_500k", "decode", {"seq_len": 524288, "global_batch": 1}),
+]
+
+GNN_SHAPES = [
+    ShapeSpec(
+        "full_graph_sm", "train",
+        {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433, "n_graphs": 1},
+    ),
+    ShapeSpec(
+        "minibatch_lg", "train",
+        # batch_nodes=1024, fanout 15-10 → padded sampled subgraph
+        {"n_nodes": 1024 + 1024 * 15 + 1024 * 150, "n_edges": 1024 * 15 + 1024 * 150,
+         "d_feat": 602, "n_graphs": 1, "batch_nodes": 1024},
+    ),
+    ShapeSpec(
+        "ogb_products", "train",
+        {"n_nodes": 2_449_029, "n_edges": 61_859_140, "d_feat": 100, "n_graphs": 1},
+    ),
+    ShapeSpec(
+        "molecule", "train",
+        {"n_nodes": 30 * 128, "n_edges": 64 * 128, "d_feat": 8, "n_graphs": 128},
+    ),
 ]
 
 RECSYS_SHAPES = [
@@ -52,6 +79,22 @@ class Arch:
     notes: str = ""
 
 
+def _reduced_gatedgcn() -> GatedGCNConfig:
+    return GatedGCNConfig(n_layers=3, d_hidden=16, d_in=16, n_classes=4)
+
+
+def _reduced_egnn() -> EGNNConfig:
+    return EGNNConfig(n_layers=2, d_hidden=16, d_in=8)
+
+
+def _reduced_nequip() -> NequIPConfig:
+    return NequIPConfig(n_layers=2, channels=8, l_max=2, n_rbf=4)
+
+
+def _reduced_equiformer() -> EquiformerV2Config:
+    return EquiformerV2Config(n_layers=2, channels=16, l_max=3, m_max=2, n_heads=4, n_rbf=4)
+
+
 def _reduced_bert4rec() -> Bert4RecConfig:
     return Bert4RecConfig(n_items=2000, embed_dim=32, n_blocks=2, n_heads=2, seq_len=24)
 
@@ -68,6 +111,30 @@ REGISTRY: dict[str, Arch] = {
                             "MLA + MoE 1s+256r top-8 + MTP [arXiv:2412.19437]"),
     "moonshot-v1-16b-a3b": _lm("moonshot-v1-16b-a3b", lm_archs.moonshot_v1_16b_a3b,
                                "MoE 64e top-6 + 2 shared [hf:moonshotai/Moonlight-16B-A3B]"),
+    "nequip": Arch(
+        "nequip", "gnn",
+        lambda: NequIPConfig(n_layers=5, channels=32, l_max=2, n_rbf=8, cutoff=5.0),
+        _reduced_nequip, tuple(GNN_SHAPES),
+        notes="E(3) tensor-product potential [arXiv:2101.03164]",
+    ),
+    "gatedgcn": Arch(
+        "gatedgcn", "gnn",
+        lambda: GatedGCNConfig(n_layers=16, d_hidden=70, d_in=1433, n_classes=64),
+        _reduced_gatedgcn, tuple(GNN_SHAPES),
+        notes="gated aggregator [arXiv:2003.00982]",
+    ),
+    "egnn": Arch(
+        "egnn", "gnn",
+        lambda: EGNNConfig(n_layers=4, d_hidden=64, d_in=16),
+        _reduced_egnn, tuple(GNN_SHAPES),
+        notes="E(n)-equivariant [arXiv:2102.09844]",
+    ),
+    "equiformer-v2": Arch(
+        "equiformer-v2", "gnn",
+        lambda: EquiformerV2Config(n_layers=12, channels=128, l_max=6, m_max=2, n_heads=8, n_rbf=8),
+        _reduced_equiformer, tuple(GNN_SHAPES),
+        notes="SO(2) eSCN graph attention [arXiv:2306.12059]",
+    ),
     "bert4rec": Arch(
         "bert4rec", "recsys",
         # 2^20 − 1 items, so the table with its [MASK] row has 2^20 rows
@@ -81,7 +148,13 @@ REGISTRY: dict[str, Arch] = {
 def get_arch(arch_id: str) -> Arch:
     if arch_id not in REGISTRY:
         raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP queue 1, item 9); "
+            f"arch {arch_id!r} is not ported yet (ROADMAP queue 1, item 9c); "
             f"ported: {sorted(REGISTRY)}"
         )
     return REGISTRY[arch_id]
+
+
+def assigned_cells():
+    """The reference's graded (arch × shape) cells: waits for ``flash-ann``
+    and the rest of the registry (ROADMAP queue 1, item 9c)."""
+    raise NotImplementedError("assigned_cells is not ported yet (ROADMAP queue 1, item 9c)")

@@ -1,6 +1,7 @@
-"""Deterministic synthetic data: the vectors (numpy, the same generator the
-reference package uses, so both packages see identical data from one seed)
-and the LM token stream (reference: ``repro.data.synthetic``).
+"""Deterministic synthetic data: the vectors and the CSR graph of the
+neighbour sampler (numpy, the same generators the reference package uses,
+so both packages see identical data from one seed) and the LM token
+stream (reference: ``repro.data.synthetic``).
 
 A batch is a pure function of (seed, step, shard), so any host, or a
 restarted one, draws exactly the same batch.
@@ -45,3 +46,15 @@ def lm_batch(seed: int, step: int, shard: int, *, batch: int, seq: int, vocab: i
     u = torch.clamp_min(u * (1.0 - 1e-6) + 1e-6, 1e-6)
     toks = torch.clamp((u.pow(-0.7) - 1).to(torch.int32), 0, vocab - 1)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def random_csr_graph(seed: int, *, n_nodes: int, avg_degree: int) -> tuple[np.ndarray, np.ndarray]:
+    """Random graph in CSR form (indptr int64, indices int32) for the
+    neighbour sampler: Poisson degrees (at least 1), uniform endpoints.
+    numpy, the reference's draw, so both packages give equal arrays."""
+    rng = np.random.default_rng(seed)
+    deg = rng.poisson(avg_degree, n_nodes).clip(1, None)
+    indptr = np.zeros(n_nodes + 1, np.int64)
+    indptr[1:] = np.cumsum(deg)
+    indices = rng.integers(0, n_nodes, indptr[-1]).astype(np.int32)
+    return indptr, indices

@@ -24,8 +24,8 @@ the two devices' query tables agree, and a snapshot of a card
 index loads back on the card searching identically. The BERT4Rec train
 step on the card agrees with the CPU's (the tolerance is in its test), and
 so do the LM family's prefill and decode at each reduced config (float32,
-atol 1e-4) and ``lm_loss`` with its gradients at two (the tolerances are
-in the test).
+atol 1e-4), ``lm_loss`` with its gradients at two and the GNN family's
+train step at each reduced config (the tolerances are in the tests).
 """
 
 from __future__ import annotations
@@ -766,3 +766,58 @@ def test_cuda_lm_loss_and_grads_equal_the_cpu(cuda_device, arch):
         rtol = 2.0 ** -7 if b.dtype == torch.bfloat16 else 1e-4
         a, b = a.cpu().double(), b.double()
         assert float((a - b).abs().max()) <= rtol * float(b.abs().max()), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gatedgcn", "egnn", "nequip", "equiformer-v2"])
+def test_cuda_gnn_train_step_equals_the_cpu(cuda_device, arch):
+    """One float32 ``gnn_train_step`` (``AdamWConfig()``) at the reduced
+    config on a padded ``molecule``-like batch of 16 graphs, card against
+    CPU from one set of weights, TF32 off: the loss, grad_norm and every
+    moment leaf within 1e-4 of the tensor's largest magnitude, every
+    parameter within that plus 2·lr (the card's ``index_add`` sums with
+    atomics, in no fixed order). Equiformer's last attention bias, whose
+    gradient is float noise (the softmax cancels it), is held against its
+    tree's largest magnitude. The batch holds a receiver whose incoming
+    edges are all masked; its gradients stay finite on the card."""
+    import dataclasses
+
+    from repro_torch.configs.registry import GNN_SHAPES, get_arch
+    from repro_torch.launch import steps as st
+    from repro_torch.train.train_loop import TrainConfig, init_train_state
+    from repro_torch.utils import tree_map, tree_paths
+
+    shape = next(s for s in GNN_SHAPES if s.name == "molecule")
+    shape = dataclasses.replace(shape, dims={**shape.dims, "n_nodes": 30 * 16, "n_edges": 64 * 16, "n_graphs": 16})
+    cfg = st.gnn_adapt_config(get_arch(arch).make_reduced(), shape)
+    gen = torch.Generator().manual_seed(0)
+    batch = st.gnn_batch(cfg, shape, gen, device="cpu")
+    g = batch["graph"]
+    n_real = shape.dims["n_edges"]  # the last real node receives only self-loops
+    last = shape.dims["n_nodes"] - 1
+    rcv = torch.where(g.receivers == last, last - 1, g.receivers)
+    rcv[n_real - 3:n_real] = last
+    snd = g.senders.clone()
+    snd[n_real - 3:n_real] = last
+    batch["graph"] = g._replace(senders=snd, receivers=rcv)
+    params = st.gnn_init(cfg, gen, device="cpu")
+    step = st.gnn_train_step(cfg)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        p = tree_map(lambda t, d=dev: t.to(d), params)
+        b = {"graph": batch["graph"].to(dev), "labels": batch["labels"].to(dev)}
+        tree, metrics = step(init_train_state(p, TrainConfig()).tree(), b)
+        out.append((metrics, tree))
+    (mc, card), (mp, cpu) = out
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(mc[k]), float(mp[k]), rtol=1e-4)
+    lr = float(mp["lr"])
+    for got_tree, want_tree, atol in ((card["params"], cpu["params"], 2 * lr), (card["opt_state"].mu, cpu["opt_state"].mu, 0.0),
+                                      (card["opt_state"].nu, cpu["opt_state"].nu, 0.0)):
+        want = tree_paths(want_tree)
+        largest = max(float(b.abs().max()) for _, b in want)
+        for (path, a), (_, b) in zip(tree_paths(got_tree), want):
+            a = a.cpu().double()
+            assert bool(torch.isfinite(a).all()), path
+            scale = largest if path == "['layers']/['attn']/['b1']" else float(b.abs().max())
+            assert float((a - b.double()).abs().max()) <= 1e-4 * scale + atol, path
