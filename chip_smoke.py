@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
 
-    python3 chip_smoke.py              # the full run: 400k x 128 vectors, 64 segments
+    python3 chip_smoke.py              # the full run: 200k x 128 vectors, 100k in 64 segments
     python3 chip_smoke.py --n 100000   # quick
 
 Phases, each printing one JSON line (any failure raises, so the exit is
@@ -36,6 +36,8 @@ non-zero and no result line is printed):
             rounds' (B, C) ∈ {16,384, 848} × {32, 48, 112} through
             ``flash_round``, ``flash_beam`` at W = 4, R = 24 with a quarter
             of the slots empty (ef 128, Q 1,000; ef 64, Q 32): bit-equal.
+            ``l2_batch`` at the flash-ann width (1,024 x 200,000 x 768, the
+            wide plan) against its plain version, with its top-10 ids.
 3. build    ``AnnIndex.build(algo="hnsw", backend="flash_blocked",
             strategy="bulk")`` over the ``--n`` base rows of one
             ``vector_dataset(seed=0, n=--n + 1,000, d=128, n_clusters=64)``
@@ -74,14 +76,14 @@ non-zero and no result line is printed):
             insert batches (busy share, top five kernels, host and card ms
             per batch); beside it the bulk build of the same rows (counted
             apart, as ``incremental_bulk``); and a
-            4,000-row incremental build with an M = 8 coder (the byte-wise
+            2,000-row incremental build with an M = 8 coder (the byte-wise
             mirror layout) on the card and on the CPU from one coder's
             state, bit-equal where the query tables agree.
 7. snapshot the main index saved with ``serve.snapshot.save_index`` and
             loaded back on the card (save and load seconds, bytes): the
             1,000 queries at ef = 64, W = 1 must return the live ids and
             distances. Then ``ShardedBuilder(workers=2, snapshot_path=…,
-            attach=True)`` over the first 32,768 rows in 8 segments (a spawn
+            attach=True)`` over the first 16,384 rows in 8 segments (a spawn
             pool sharing the card) must attach segments bit-equal to the
             inline build of the same plan; both walls and
             ``model_parallel_wall`` of the inline walls.
@@ -132,7 +134,8 @@ non-zero and no result line is printed):
             ``flash_blocked`` build launches ``flash_round`` and
             ``flash_beam``, every search ``flash_beam``.
 8. sharded  the scale-out path: ``ShardedBuilder`` streams the first
-            ``--n`` − 2,000 rows into 64 balanced segments (inline,
+            ``N_SCALE`` − 2,000 rows (of ``--n``'s at most) into 64 balanced
+            segments (inline,
             each a bulk Flash-HNSW build): assignment
             seconds (bootstrap, streaming pass), segment sizes, the sum and
             the largest of the per-segment build seconds, n_dists; the
@@ -215,14 +218,14 @@ non-zero and no result line is printed):
             donated step, over ``transformer.lm_loss``) at full width on
             ``lm_batch`` data at S = 4,096 (``train_4k``), seeded random
             weights, bf16 compute, remat on, ``lm_opt_cfg``'s moments, lr
-            3e-4 constant after 2 warm-up steps, 10 steps: llama3.2-3b (28
+            3e-4 constant after 2 warm-up steps, 8 steps: llama3.2-3b (28
             layers, B 1), qwen1.5-0.5b (24 layers, 2 microbatches of 2),
             moonshot-v1-16b-a3b cut to 5 layers (1 dense + 4 MoE) and
             deepseek-v3-671b cut to its 3 dense MLA layers and the MTP
             block (B 1 each). Per config: s per step (median of steps
-            3–10), tokens/s, model FLOPs/s over the dense bf16 peak,
-            peak memory, the losses and a profiler window over 2 more
-            steps. (a) The loss falls (the mean of the last 3 steps below
+            3–8), tokens/s, model FLOPs/s over the dense bf16 peak,
+            peak memory, the losses and a profiler window over 1 more
+            step. (a) The loss falls (the mean of the last 3 steps below
             step 1) and every loss and grad_norm is finite. (b) One float32
             step (float32 storage too, TF32 off) on the card against the
             CPU from one set of weights and one batch, on the five reduced
@@ -263,6 +266,32 @@ non-zero and no result line is printed):
             reach half a scan of the same codes, and the energy equal the
             CPU path's. One line per cell (``gnn_training_cell``), then the
             phase's.
+16. flash_ann  the paper's own workload, the registry's ``flash-ann``
+            cells (D 768; coder d_f 256, M 16, 4-bit, H 8; 2 segments of
+            100,000 rows; 1,024 queries, k 10) on ``vector_dataset(seed=0,
+            n=201,024, d=768)``, ``BuildParams(r_upper=16, r_base=32, ef=128,
+            batch=64, max_layers=3)``. (a) ``flash_ann_reference``: the
+            reference's single-device programs (``fit_shared_coder``,
+            ``build_segments_vmapped`` over the unblocked Flash backend,
+            ``search_segments_local`` with the segments' vectors at ef ∈ {96,
+            256}) over the first ``--ann-inc`` rows of each segment, and the
+            card against the CPU on a 1,024-row ``build_segment``. (b)
+            ``SegmentedAnnIndex.build`` over both 100,000-row segments (bulk
+            ``flash_blocked``), the fan-out search at ef ∈ {96, 256}, W ∈ {1,
+            4}, exact rerank, against ``exact_knn`` over the 200,000 rows
+            (cross-checked against a plain loop); recall at ef 256 at least
+            ½ a scan of every segment's codes keeping 256; ``flash_round``,
+            ``flash_beam`` and ``l2_batch`` must launch.
+17. recsys_cells  BERT4Rec's serving cells through
+            ``launch/steps.build_bundle`` at the full config with seeded
+            weights: ``serve_p99`` (B 512), ``serve_bulk`` (all 262,144
+            sessions in blocks of 8,192, the first 256 held against the CPU's
+            ``score_all`` top-100 except at near ties) and ``retrieval_cand``
+            (B 1 over 1,000,000 Flash-coded candidates, one ``flash_scan`` a
+            call): ms or s, model FLOPs/s over the float32 peak.
+18. examples  ``examples/torch_quickstart.py``,
+            ``torch_distributed_build.py`` (4 segments of 500 rows) and
+            ``torch_retrieval_serving.py``, each ``main()`` on the card.
 
 Launch counts are zeroed just before each path (the main path: phases 3–4;
 the incremental path and the bulk build beside it: phase 6, each counted
@@ -270,7 +299,9 @@ apart, the profiler window in neither; the snapshot path: phase 7; the
 serving path: phases 7d and 10b, each counted, then summed; the
 baselines and generality paths: phases 7b and 7c; the scale-out path:
 phases 8–10; the retrieval path: phase 11; the training path: phase 12
-(b)–(d); the GNN example's path: phase 15 (c)) and read just after it;
+(b)–(d); the GNN example's path: phase 15 (c); the flash-ann paths:
+phase 16 (a) and (b), each; the recsys cells: phase 17; the examples:
+phase 18) and read just after it;
 the script fails if a kernel of a path never launched there. The LM
 serving and training paths (phases 13 and 14) and the GNN models (phase
 15 (a), (b)) have no kernel of the repo to count. The main
@@ -298,13 +329,15 @@ import numpy as np
 
 QUERIES = 1000  # held-out search queries, the search batch
 SEGMENTS = 64  # the scale-out path's segments (benchmarks/bench_scalability.py:60-61)
+N_SCALE = 100_000  # rows of the scale-out path (PERF.md §4 gives the cut)
 ADD_ROWS = 2000  # rows the scale-out path adds through routed growth
 REQUESTS = 64  # the retrieval path's request batch (examples/retrieval_serving.py:49)
 GRAPH_EF = (96, 512)  # the example's ef_search (examples/retrieval_serving.py:72), and a wider beam
 DELETE_ROWS = 10000  # ids the scale-out path deletes
-N_INC = 10000  # rows of the incremental build (phase 6; PERF.md §4 gives the cut)
+N_INC = 4000  # rows of the incremental build (phase 6; PERF.md §4 gives the cut)
+INC_CHECK_ROWS = 2000  # rows of phase 6's M = 8 build, card against CPU (PERF.md §4 gives the cut)
 N_BASE = 50_000  # rows of the baselines and generality phases (7b, 7c; PERF.md §4 gives the cut)
-POOL_ROWS = 32768  # rows of the snapshot phase's pool and inline builds (PERF.md §4 gives the cut)
+POOL_ROWS = 16384  # rows of the snapshot phase's pool and inline builds (PERF.md §4 gives the cut)
 PROFILED_BATCHES = 5  # insert batches of the incremental path's profiler window (PERF.md §4)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 CUDA_CORE_OPS_PER_S = 67e12  # float32 outside the tensor cores; int32 adds counted at it
@@ -558,6 +591,7 @@ def check_kernels(dev, n: int) -> dict:
     out["limits"] = check_repaired_limits(dev, g)
     out["flat_shapes"] = check_flat_shapes(dev, g)
     out.update(check_l2_batch(dev, g, q))
+    out["l2_batch_d768"] = check_l2_batch_d768(dev, g)
     # nearest_centroid: routed growth's shape, with a banned mask
     x = torch.randn((2000, 128), generator=g, device=dev) * 10
     cents = torch.randn((64, 128), generator=g, device=dev) * 10
@@ -1101,7 +1135,7 @@ def incremental_path(dev, base_np, queries, n_inc: int, t_start: float) -> dict:
     insert batches (``add`` to a copy: the same program) for the card's
     busy share and the time per insert batch on the host and on the card.
     Beside it the bulk build of the same rows, and the card against the CPU
-    path on a 4,000-row incremental build with an M = 8 coder (4 bytes per
+    path on a 2,000-row incremental build with an M = 8 coder (4 bytes per
     packed row: the byte-wise layout). Returns the path's launches (ground
     truth, the incremental build, its searches), the bulk build's beside it
     (build and searches), counted apart, and ``l2_batch``'s ground-truth
@@ -1184,9 +1218,9 @@ def incremental_path(dev, base_np, queries, n_inc: int, t_start: float) -> dict:
     sync(dev)
     bulk_launches = dict(ops.launches)
 
-    # the card against the CPU path: a 4,000-row incremental build from one
+    # the card against the CPU path: a 2,000-row incremental build from one
     # M = 8 coder's state (not counted: both counts were read above)
-    d4 = data[:4000]
+    d4 = data[:INC_CHECK_ROWS]
     be = bk.make_backend("flash_blocked", d4, seed=0, r_for_blocked=params.r_base, device=dev,
                          d_f=64, m_f=8, l_f=4, h=8)
     state = be.state_dict()
@@ -1219,7 +1253,7 @@ def incremental_path(dev, base_np, queries, n_inc: int, t_start: float) -> dict:
                    "repair_unreachable": bst.repair_unreachable, "results": bulk_results,
                    "reachable_from_entry": bulk_reach,
                    "flash_beam_launches": bulk_build_launches["flash_beam"], "launches": bulk_launches},
-          "card_vs_cpu_m8": {"n": 4000, "layout": layout, "card_s": card_s, "cpu_s": cpu_s,
+          "card_vs_cpu_m8": {"n": INC_CHECK_ROWS, "layout": layout, "card_s": card_s, "cpu_s": cpu_s,
                              "adt_level_mismatch": mismatch, "equal": same, "adj0_rows_equal": rows_equal},
           "launches": launches, "elapsed_s": time.perf_counter() - t_start})
     return launches, bulk_launches, gt_l2
@@ -1329,13 +1363,13 @@ def timed_search(coll, queries, **kw):
     return res, dt
 
 
-def scale_out_path(base_np, queries, gt, spill: str, t_start: float):
-    """Phases 8–10 on the main path's rows: sharded streaming build of all
-    but the last ``ADD_ROWS`` rows, segmented fan-out search, routed growth
-    of those rows and deletion, scored against the main path's ground
-    truth ``gt`` and then an ``exact_knn`` of the live rows. Returns the
-    path's kernel launches, its ``l2_batch`` launches by use (assignment,
-    add, ground truth), the collection and the live rows' ground truth."""
+def scale_out_path(base_np, queries, spill: str, t_start: float):
+    """Phases 8–10 on the first rows of the main draw (``base_np``): sharded
+    streaming build of all but the last ``ADD_ROWS`` rows, segmented fan-out
+    search, routed growth of those rows and deletion, scored against the
+    ``exact_knn`` of those rows and then that of the live rows. Returns the path's kernel launches,
+    its ``l2_batch`` launches by use (assignment, add, ground truth), the
+    collection and the live rows' ground truth."""
     import torch
 
     from repro_torch.graph.engine import BuildParams
@@ -1346,6 +1380,8 @@ def scale_out_path(base_np, queries, gt, spill: str, t_start: float):
     dev = queries.device
     n = base_np.shape[0]
     ops.reset_launches()
+    gt = exact_knn(queries, torch.from_numpy(base_np).to(dev), k=10)[0].long()
+    gt_l2 = ops.launches["l2_batch"]
 
     # ---- 8. sharded streaming build ----------------------------------------
     builder = ShardedBuilder(
@@ -1440,7 +1476,7 @@ def scale_out_path(base_np, queries, gt, spill: str, t_start: float):
     gt_live = live_t[exact_knn(queries, torch.from_numpy(base_np[live]).to(dev), k=10)[0].long()]
     sync(dev)
     launches = dict(ops.launches)
-    l2_uses = {"assignment": assign_l2, "add": add_l2, "ground_truth": launches["l2_batch"] - before}
+    l2_uses = {"assignment": assign_l2, "add": add_l2, "ground_truth": launches["l2_batch"] - before + gt_l2}
     emit({"phase": "maintenance", "added": ADD_ROWS, "add_s": add_s, "add_l2_batch_launches": add_l2,
           "route_flips": flips, "near_tie_flips": near, "n_after_add": coll.n,
           "recall@10_after_add_ef256": recall_at(r_add.ids, gt), "qps_after_add": QUERIES / dt_add,
@@ -2465,8 +2501,8 @@ LM_TRAIN_CELLS = (
     ("deepseek-v3-671b", 3, 1, 1),
 )
 LM_TRAIN_SEQ = 4096  # train_4k's seq_len (src/repro/configs/registry.py:31)
-LM_TRAIN_STEPS = 10  # 12 cut to keep the whole smoke inside its limit (PERF.md §4)
-LM_TRAIN_PROFILED = 2  # steps under the profiler, after the timed ones
+LM_TRAIN_STEPS = 8  # 12 cut to 10, then 8, to keep the whole smoke inside its limit (PERF.md §4)
+LM_TRAIN_PROFILED = 1  # steps under the profiler, after the timed ones (2 cut to 1, PERF.md §4)
 #: card against CPU, float32 storage and compute, TF32 off, one train step:
 #: every compared tensor (the loss, each metric, grad_norm, and every
 #: parameter and moment leaf after the step) within this share of its
@@ -2617,7 +2653,7 @@ def lm_train_cell(dev, arch: str, depth, rows: int, microbatches: int) -> dict:
         sync(dev)
 
     t0 = time.perf_counter()
-    out["profile_2_steps"] = device_window(one_step, cpu=False, reps=LM_TRAIN_PROFILED, warm=False)
+    out["profile_steps"] = device_window(one_step, cpu=False, reps=LM_TRAIN_PROFILED, warm=False)
     out["profile_s"] = time.perf_counter() - t0
     del params, state, tree, data
     gc.collect()
@@ -2928,19 +2964,13 @@ def gnn_example_path(dev) -> tuple[dict, dict]:
     (``code_scan_recall`` keeping ef = 64), and EGNN's energy must be
     finite and equal the CPU path's on the same graph and weights within
     ``GNN_TRAIN_CARD_RTOL``. Returns (the check's numbers, its launches)."""
-    import importlib.util
-
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.testing.scan import code_scan_recall
     from repro_torch.utils import tree_map
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    spec = importlib.util.spec_from_file_location("torch_gnn_graph_build",
-                                                  os.path.join(root, "examples", "torch_gnn_graph_build.py"))
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    example = load_example("torch_gnn_graph_build")
     t0 = time.perf_counter()
     ops.reset_launches()
     res = example.knn_graph_energy(4000, device=dev)
@@ -3484,18 +3514,430 @@ def generality_path(dev, base_np, queries, n_rows: int, t_start: float) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The paper's own workload (flash-ann), the recsys cells and the examples
+# ---------------------------------------------------------------------------
+
+ANN_SEGMENTS = 2  # the flash-ann cells' segments on one card
+ANN_PARAMS = dict(r_upper=16, r_base=32, ef=128, batch=64, max_layers=3)  # src/repro/launch/dryrun.py:142
+ANN_EF = (96, 256)  # examples/distributed_build.py:60, and the wider beam of every Flash path
+ANN_INC = 1024  # rows a segment of part (a)'s incremental build (PERF.md §4 gives the cut from 100,000)
+ANN_CHECK_ROWS = 1024  # part (a)'s card-against-CPU prefix
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are not a package)."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(root, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_l2_batch_d768(dev, g) -> dict:
+    """Phase 2's ``l2_batch`` row at the flash-ann width: 1,024 queries x
+    200,000 rows at D = 768 (24 K-slices a tile, 6x the K loop of D = 128),
+    held against ``ref.l2_batch`` (rtol 1e-5, ``l2_atol``), timed by events
+    and the profiler beside its 3xTF32 bound. Each query's 10 nearest ids by
+    the kernel against those by the plain version: rows that differ are
+    counted with the plain margin between the two sets' farthest members
+    (a near tie lies within 2·atol). The plan at C = 2 and 64 (routing at
+    this width) must take the wide shape: the narrow one's resident y
+    cannot hold 24 K-slices."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.utils import topk_first
+
+    nq, nc, d = 1024, 200_000, 768
+    x = torch.randn((nq, d), generator=g, device=dev)
+    y = torch.randn((nc, d), generator=g, device=dev)
+    plan = ops._l2_plan(nq, nc, d, x.data_ptr(), y.data_ptr(), ops._sm_count(dev))
+    narrow = {c: ops._l2_plan(65536, c, d, x.data_ptr(), y.data_ptr(), ops._sm_count(dev)).narrow for c in (2, 64)}
+    if any(narrow.values()):
+        raise AssertionError(f"l2_batch at D = 768 planned the narrow shape: {narrow}")
+    got, want = ops.l2_batch(x, y), ref.l2_batch(x, y)
+    atol = l2_atol(x, y)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-5, atol=atol):
+        raise AssertionError(f"l2_batch 1024x200000x768: off by {err} (atol {atol})")
+    ids_k, ids_p = topk_first(-got, 10)[1], topk_first(-want, 10)[1]
+    rows = (ids_k.sort(1).values != ids_p.sort(1).values).any(1)
+    margin = (want.gather(1, ids_k).amax(1) - want.gather(1, ids_p).amax(1))[rows]
+    del got, want
+    near = int((margin <= 2 * atol).sum())
+    if int(rows.sum()) > near:
+        raise AssertionError(f"l2_batch at D = 768: {int(rows.sum())} top-10 id sets differ, {near} at near ties")
+    nbytes = 4 * (nq * d + nc * d + nq * nc)
+    bnd, by = bound_ms(nbytes, 3 * 2 * nq * nc * d, TF32_TENSOR_OPS_PER_S)
+    bnd_fma, _ = bound_ms(nbytes, 2 * nq * nc * d)
+    return dict(shape=[nq, nc, d], max_abs_err=err, atol=atol, plan=plan._asdict(),
+                narrow_at_c={str(c): v for c, v in narrow.items()}, top10_rows_differ=int(rows.sum()),
+                top10_near_ties=near, top10_max_margin=float(margin.max()) if margin.numel() else 0.0,
+                ms=time_ms(lambda: ops.l2_batch(x, y), reps=5, inner=3),
+                device_ms=profiler_kernel_ms(lambda: ops.l2_batch(x, y), "l2_batch_kernel", reps=3),
+                plain_ms=time_ms(lambda: ref.l2_batch(x, y), reps=3, inner=2),
+                bound_ms=bnd, bound_by=by, bound_fp32_fma_ms=bnd_fma,
+                library_ms=time_ms(lambda: torch.cdist(x, y, compute_mode="use_mm_for_euclid_dist"), reps=3, inner=2))
+
+
+def ann_card_vs_cpu(dev, rows, coder, params) -> dict:
+    """Part (a)'s check: ``build_segment`` over the first rows of segment 0
+    on the card and on the CPU from one coder: codes, adjacency (both
+    layers), levels and entry equal wherever the two devices' codes and
+    query tables agree, else at least 99% of adjacency rows."""
+    import torch
+
+    from repro_torch.core import flash as fl
+    from repro_torch.graph import segmented as seg
+    from repro_torch.graph.engine import BuildParams, prefix_entries, sample_levels
+
+    n = rows.shape[0]
+    levels = sample_levels(0, n, r_upper=params.r_upper, max_layers=params.max_layers)
+    entries = prefix_entries(levels, params.batch)
+    coder_cpu = fl.FlashCoder(*(t.cpu() for t in coder))
+    t0 = time.perf_counter()
+    g_card = seg.build_segment(rows, coder, levels, entries, params=BuildParams(**ANN_PARAMS))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_cpu = seg.build_segment(rows.cpu(), coder_cpu, levels, entries, params=BuildParams(**ANN_PARAMS))
+    cpu_s = time.perf_counter() - t0
+    code_mismatch = int((g_card.backend.codes.cpu() != g_cpu.backend.codes).sum())
+    adt_mismatch = int((fl.query_ctx(coder, rows).adt_q.cpu() != fl.query_ctx(coder_cpu, rows.cpu()).adt_q).sum())
+    same = {f: torch.equal(getattr(g_card, f).cpu(), getattr(g_cpu, f)) for f in ("adj0", "adj_up", "levels")}
+    same["entry"] = g_card.entry == g_cpu.entry
+    rows_equal = float((g_card.adj0.cpu() == g_cpu.adj0).all(1).double().mean())
+    if code_mismatch == 0 and adt_mismatch == 0 and not all(same.values()):
+        raise AssertionError(f"equal codes and query tables, yet the card's segment build differs: {same}")
+    if rows_equal < 0.99:
+        raise AssertionError(f"only {rows_equal} of adjacency rows equal the CPU's ({code_mismatch} codes, "
+                             f"{adt_mismatch} table levels differ)")
+    return {"n": n, "card_s": card_s, "cpu_s": cpu_s, "code_mismatch": code_mismatch,
+            "adt_level_mismatch": adt_mismatch, "equal": same, "adj0_rows_equal": rows_equal}
+
+
+def flash_ann_path(dev, ann_inc: int, t_start: float) -> tuple[dict, dict]:
+    """Phase 16: the registry's ``flash-ann`` workload (D 768; coder d_f 256,
+    M 16, 4-bit, H 8; ``segment_build``: 100,000 rows a segment;
+    ``fanout_search``: 1,024 queries, k 10) on ``vector_dataset(seed=0,
+    n=2·100,000 + 1,024, d=768, n_clusters=64)``, one shared coder from
+    ``fit_shared_coder`` over the rows.
+
+    (a) The reference's own single-device programs: ``build_segments_vmapped``
+    (the incremental build over the unblocked ``FlashBackend``) over the
+    first ``ann_inc`` rows of each of the 2 segments with
+    ``ANN_PARAMS``, then ``search_segments_local`` with the segments'
+    vectors at ef ∈ {96, 256}: s per insert batch, n_dists by phase,
+    recall@10 against ``exact_knn`` over those rows, QPS. Beside it the card
+    against the CPU on a 1,024-row prefix (``ann_card_vs_cpu``).
+    (b) The cells at full size on the port's main path:
+    ``SegmentedAnnIndex.build`` over the two 100,000-row segments
+    (``flash_blocked``, bulk, ``ANN_PARAMS``, each segment's own coder at the
+    flash-ann settings), then the fan-out search at ef ∈ {96, 256}, W ∈ {1,
+    4}, exact rerank: coder fit and build s by phase, n_dists, index bytes,
+    QPS, recall@10 against ``exact_knn`` over the 200,000 rows (``l2_batch``
+    at D = 768, cross-checked against a plain loop), a scan of each
+    segment's codes keeping 256, the busy share over one search. At ef =
+    256 the best recall must reach ½ of the scan's. Returns the launches of
+    (a) and of (b), each read just after its path."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import vector_dataset
+    from repro_torch.graph import segmented as seg
+    from repro_torch.graph.engine import PHASE_NAMES, BuildParams, prefix_entries, sample_levels
+    from repro_torch.index import SegmentedAnnIndex, exact_knn
+    from repro_torch.kernels import ops
+    from repro_torch.utils import sync
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch = get_arch("flash-ann")
+    cfg = arch.make_full()
+    cells = {s.name: s.dims for s in arch.shapes}
+    seg_rows, d = cells["segment_build"]["segment_size"], cfg["dim"]
+    nq, k = cells["fanout_search"]["n_queries"], cells["fanout_search"]["k"]
+    coder_kw = {key: cfg[key] for key in ("d_f", "m_f", "l_f", "h")}
+    params = BuildParams(**ANN_PARAMS)
+    t0 = time.perf_counter()
+    x = vector_dataset(0, n=ANN_SEGMENTS * seg_rows + nq, d=d, n_clusters=64)
+    base = torch.from_numpy(x[:ANN_SEGMENTS * seg_rows]).to(dev)
+    queries = torch.from_numpy(x[ANN_SEGMENTS * seg_rows:]).to(dev)
+    del x
+    data_s = time.perf_counter() - t0
+    out = {"segments": ANN_SEGMENTS, "segment_rows": seg_rows, "dim": d, "queries": nq, "k": k,
+           "coder": coder_kw, "params": ANN_PARAMS, "data_gen_s": data_s}
+
+    # ---- (a) the reference's programs ---------------------------------------
+    t0 = time.perf_counter()
+    coder = seg.fit_shared_coder(0, base, device=dev, **coder_kw)
+    sync(dev)
+    out["a_shared_coder_fit_s"] = time.perf_counter() - t0
+    out["a_card_vs_cpu"] = ann_card_vs_cpu(dev, base[:ANN_CHECK_ROWS], coder, params)
+    segs = base.reshape(ANN_SEGMENTS, seg_rows, d)[:, :ann_inc]
+    levels = np.stack([sample_levels(s, ann_inc, r_upper=params.r_upper, max_layers=params.max_layers)
+                       for s in range(ANN_SEGMENTS)])
+    entries = np.stack([prefix_entries(levels[s], params.batch) for s in range(ANN_SEGMENTS)])
+    ops.reset_launches()
+    stats = []
+    sync(dev)
+    t0 = time.perf_counter()
+    built = seg.build_segments_vmapped(segs, coder, levels, entries, params=params, stats=stats)
+    sync(dev)
+    a_build = time.perf_counter() - t0
+    batches = ANN_SEGMENTS * (-(-ann_inc // params.batch) - 1)
+    insert_s = sum(st.seconds["insert_batches"] for st in stats)
+    gt_a = exact_knn(queries, segs.reshape(-1, d), k=k)[0].long()
+    a_results = []
+    for ef in ANN_EF:
+        kw = dict(k=k, ef_search=ef, seg_vectors=segs)
+        seg.search_segments_local(built, queries[:32], np.full(ANN_SEGMENTS, ann_inc), **kw)  # warm-up
+        sync(dev)
+        t0 = time.perf_counter()
+        ids, dists = seg.search_segments_local(built, queries, np.full(ANN_SEGMENTS, ann_inc), **kw)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        if not bool(torch.isfinite(dists).all()) or tuple(ids.shape) != (nq, k):
+            raise AssertionError(f"search_segments_local ef={ef}: malformed result")
+        a_results.append({"ef": ef, "qps": nq / dt, "seconds": dt, "recall@10": recall_at(ids, gt_a)})
+    sync(dev)
+    launches_a = dict(ops.launches)
+    out["a"] = {"rows_per_segment": ann_inc, "build_s": a_build, "insert_batches": batches,
+                "s_per_insert_batch": insert_s / max(1, batches),
+                "bootstrap_s": sum(st.seconds["bootstrap"] for st in stats),
+                "n_dists": sum(st.n_dists for st in stats),
+                "n_dists_by_phase": {p: sum(st.phases[i] for st in stats) for i, p in enumerate(PHASE_NAMES)},
+                "results": a_results, "launches": launches_a}
+    del built, segs, stats
+    emit({"phase": "flash_ann_reference", **out["a"], "card_vs_cpu": out["a_card_vs_cpu"],
+          "shared_coder_fit_s": out["a_shared_coder_fit_s"], "elapsed_s": time.perf_counter() - t_start})
+
+    # ---- (b) the cells at full size on the main path -------------------------
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    sync(dev)
+    t0 = time.perf_counter()
+    coll = SegmentedAnnIndex.build([base[s * seg_rows:(s + 1) * seg_rows] for s in range(ANN_SEGMENTS)],
+                                   algo="hnsw", backend="flash_blocked", strategy="bulk", params=params,
+                                   backend_kwargs=coder_kw, device=dev)
+    sync(dev)
+    b_build = time.perf_counter() - t0
+    seconds = {}
+    for s_ in coll.segments:
+        for key, v in s_.last_stats.seconds.items():
+            seconds[key] = seconds.get(key, 0.0) + v
+    build_launches = dict(ops.launches)
+    t0 = time.perf_counter()
+    gt_i32, gt_d = exact_knn(queries, base, k=k)
+    sync(dev)
+    gt_s = time.perf_counter() - t0
+    gt = gt_i32.long()
+    b_results = []
+    for ef in ANN_EF:
+        for width in (1, 4):
+            before = ops.launches["flash_beam"]
+            res, dt = timed_search(coll, queries, k=k, ef=ef, width=width)
+            b_results.append({"ef": ef, "width": width, "qps": nq / dt, "seconds": dt,
+                              "recall@10": recall_at(res.ids, gt), "n_scan": res.n_scan,
+                              "n_rerank": res.n_rerank, "flash_beam_launches": ops.launches["flash_beam"] - before})
+    sync(dev)
+    launches_b = dict(ops.launches)
+    for name in ("flash_round", "flash_beam", "l2_batch"):
+        if launches_b[name] == 0:
+            raise AssertionError(f"the flash-ann path never launched {name}")
+    gt_check = knn_cross_check(gt, gt_d, base, queries)
+    window = device_window(lambda: coll.search(queries, k=k, ef=ANN_EF[0], width=1))
+    scan = segment_scan_recall(coll, queries, gt, 256)
+    best = max(r["recall@10"] for r in b_results if r["ef"] == 256)
+    out["b"] = {"build_s": b_build, "seconds": seconds,
+                "n_dists": sum(s_.last_stats.n_dists for s_ in coll.segments),
+                "n_dists_by_phase": {p: sum(s_.last_stats.phases[i] for s_ in coll.segments)
+                                     for i, p in enumerate(PHASE_NAMES)},
+                "repair_unreachable": [s_.last_stats.repair_unreachable for s_ in coll.segments],
+                "index_bytes": sum(index_bytes(s_) for s_ in coll.segments),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "ground_truth_s": gt_s,
+                "ground_truth_cross_check": gt_check, "results": b_results,
+                "code_scan_256_recall@10": scan, "profile_ef96_w1": window,
+                "build_launches": build_launches, "launches": launches_b}
+    del coll, base, queries
+    emit({"phase": "flash_ann", **out["b"], "phase_s": time.perf_counter() - t_phase,
+          "elapsed_s": time.perf_counter() - t_start})
+    scan_gate("the flash-ann fan-out search at ef=256", best, scan)
+    return launches_a, launches_b
+
+
+RECSYS_SEED = 0
+RECSYS_BULK_CHECK = 256  # serve_bulk sessions held against the CPU
+
+
+def recsys_cells_path(dev, t_start: float) -> dict:
+    """Phase 17: BERT4Rec's serving cells through ``launch/steps.build_bundle``
+    at the full config with seeded weights, sessions from ``recsys_batch``
+    ending in [MASK]: ``serve_p99`` at B 512 (ms a batch), ``serve_bulk`` at
+    B 262,144 in blocks of ``steps.BULK_BLOCK`` (s for all of them),
+    ``retrieval_cand`` at B 1 over 1,000,000 candidates coded by a Flash
+    coder (d_f 48, M 16) fitted on those rows (ms; one ``flash_scan`` a
+    call); each with its model FLOPs/s over the float32 peak. The card's
+    ``serve_bulk`` top-100 ids on 256 sessions equal ``score_all`` and
+    ``topk_first`` on the CPU, except at near ties (the CPU's scores of the
+    differing ids within 1e-5 of the 100th's), counted. Returns the
+    launches."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import flash as fl
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import bert4rec as b4r
+    from repro_torch.utils import topk_first, tree_map
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch = get_arch("bert4rec")
+    cfg = arch.make_full()
+    dims = {s.name: s.dims for s in arch.shapes}
+    gen = torch.Generator(device=dev).manual_seed(RECSYS_SEED)
+    params = b4r.params_tree(b4r.Bert4Rec(cfg, gen, device=dev))
+
+    def sessions(batch: int, step: int):
+        items = recsys_batch(RECSYS_SEED, step, 0, batch=batch, seq=cfg.seq_len, n_items=cfg.n_items,
+                             device=dev)["items"]
+        items[:, -1] = cfg.mask_id
+        return items
+
+    out = {}
+    ops.reset_launches()
+    b = steps.build_bundle("bert4rec", "serve_p99", device=dev)
+    items = sessions(dims["serve_p99"]["global_batch"], 1)
+    logits = b.fn(params, items)
+    if tuple(logits.shape) != (items.shape[0], cfg.n_items + 1) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("serve_p99: malformed logits")
+    del logits
+    ms = path_ms(lambda: b.fn(params, items))
+    out["serve_p99"] = {"batch": items.shape[0], "ms": ms, "model_flops": b.model_flops,
+                        "share_of_fp32_peak": b.model_flops / (ms / 1e3) / CUDA_CORE_OPS_PER_S}
+
+    b = steps.build_bundle("bert4rec", "serve_bulk", device=dev)
+    items = sessions(dims["serve_bulk"]["global_batch"], 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, scores = b.fn(params, items)
+    torch.cuda.synchronize()
+    bulk_s = time.perf_counter() - t0
+    if tuple(ids.shape) != (items.shape[0], steps.BULK_K) or bool((ids < 0).any()) or \
+            not bool(torch.isfinite(scores).all()):
+        raise AssertionError("serve_bulk: malformed result")
+    # the card against the CPU on the first sessions
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    nc = RECSYS_BULK_CHECK
+    with torch.no_grad():
+        logits_cpu = b4r.bert4rec_score_all(cpu_params, cfg, items[:nc].cpu())
+    want_s, want_i = topk_first(logits_cpu, steps.BULK_K)
+    got_i = ids[:nc].cpu().long()
+    differ = (got_i.sort(1).values != want_i.sort(1).values).any(1)
+    kth = want_s[:, -1:]
+    near_rows = 0
+    for r in torch.nonzero(differ)[:, 0].tolist():
+        extra = got_i[r][~torch.isin(got_i[r], want_i[r])]
+        near_rows += int(bool(((logits_cpu[r, extra] - kth[r]).abs() <= 1e-5 * max(1.0, float(kth[r].abs()))).all()))
+    if int(differ.sum()) > near_rows:
+        raise AssertionError(f"serve_bulk: {int(differ.sum())} of {nc} sessions' top-100 differ from the CPU's, "
+                             f"{near_rows} at near ties")
+    del logits_cpu, cpu_params
+    out["serve_bulk"] = {"batch": items.shape[0], "block": steps.BULK_BLOCK, "seconds": bulk_s,
+                         "sessions_per_s": items.shape[0] / bulk_s, "model_flops": b.model_flops,
+                         "share_of_fp32_peak": b.model_flops / bulk_s / CUDA_CORE_OPS_PER_S,
+                         "card_vs_cpu": {"sessions": nc, "rows_differ": int(differ.sum()), "near_ties": near_rows}}
+    del ids, scores, items
+
+    b = steps.build_bundle("bert4rec", "retrieval_cand", device=dev)
+    n_cand = dims["retrieval_cand"]["n_candidates"]
+    t0 = time.perf_counter()
+    table = params["item_embed"][:n_cand]
+    coder = fl.fit_flash(table, d_f=48, m_f=16, kmeans_iters=10, device=dev)
+    codes = fl.encode(coder, table)
+    fit_s = time.perf_counter() - t0
+    items = sessions(dims["retrieval_cand"]["global_batch"], 3)
+    adt = fl.query_ctx(coder, b4r.bert4rec_serve(params, cfg, items)).adt_q[0]
+    before = ops.launches["flash_scan"]
+    res = b.fn(params, items, codes, adt)
+    if [tuple(t.shape) for t in res] != [(1, 100), (1, 100), (100,), (100,)]:
+        raise AssertionError("retrieval_cand: malformed result")
+    if ops.launches["flash_scan"] - before != 1:
+        raise AssertionError("retrieval_cand did not launch flash_scan once")
+    ms = path_ms(lambda: b.fn(params, items, codes, adt))
+    overlap = float(torch.isin(res[2], res[0][0]).double().mean())
+    out["retrieval_cand"] = {"candidates": n_cand, "coder_fit_and_encode_s": fit_s, "ms": ms,
+                             "model_flops": b.model_flops,
+                             "share_of_fp32_peak": b.model_flops / (ms / 1e3) / CUDA_CORE_OPS_PER_S,
+                             "flash_top100_in_dense_top100": overlap}
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    if launches["flash_scan"] == 0:
+        raise AssertionError("the recsys cells never launched flash_scan")
+    del params, table, codes
+    emit({"phase": "recsys_cells", **out, "launches": launches, "phase_s": time.perf_counter() - t_phase,
+          "elapsed_s": time.perf_counter() - t_start})
+    return launches
+
+
+#: the examples and the arguments the smoke gives them: the distributed
+#: example's four incremental segment builds at 500 rows (from 2,000; its
+#: program runs at the paper's width in phase 16 (a); PERF.md §4)
+EXAMPLES = (("torch_quickstart", []), ("torch_distributed_build", ["--seg-size", "500"]),
+            ("torch_retrieval_serving", []))
+
+
+def examples_path(dev, t_start: float) -> dict:
+    """Phase 18: the three examples' ``main()`` on the card with
+    ``EXAMPLES``' arguments (their printed lines above this one), each
+    timed; their recall lines come back as their returned dicts. Returns
+    the launches of all three."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    out = {}
+    for name, argv in EXAMPLES:
+        t0 = time.perf_counter()
+        res = load_example(name).main(argv)
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.perf_counter() - t0, **res}
+    launches = dict(ops.launches)
+    for name in ("flash_round", "flash_beam", "l2_batch", "flash_scan"):
+        if launches[name] == 0:
+            raise AssertionError(f"the examples never launched {name}")
+    emit({"phase": "examples", **out, "launches": launches, "phase_s": time.perf_counter() - t_phase,
+          "elapsed_s": time.perf_counter() - t_start})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     # The repo's scalability setting is 1M vectors in 64 segments. Both paths
     # at 1M ran 1,119 s and 1,151 s of the 1,200 s limit on the H100, so the
     # rows were cut to 500k, and to 400k when the GNN phase brought the run
-    # to 1,173.7 s; the 64 segments are kept (PERF.md records both cuts).
-    ap.add_argument("--n", type=int, default=400_000,
-                    help="base rows of both paths (the scalability setting: 1M)")
+    # to 1,173.7 s; then to 200k, with the scale-out path on its first 100k
+    # rows, when the flash-ann phase (its 2 x 100,000 x 768 segments) came;
+    # the 64 segments are kept (PERF.md records every cut).
+    ap.add_argument("--n", type=int, default=200_000,
+                    help="base rows of the main path (the scalability setting: 1M)")
     ap.add_argument("--n-inc", type=int, default=N_INC,
                     help="rows of the incremental build (phase 6)")
     ap.add_argument("--n-base", type=int, default=N_BASE,
                     help="rows of the baselines and generality phases (7b, 7c)")
+    ap.add_argument("--ann-inc", type=int, default=ANN_INC,
+                    help="rows a segment of the flash-ann phase's incremental build, part (a)")
     args = ap.parse_args()
     n = args.n
 
@@ -3655,7 +4097,8 @@ def main() -> int:
         gen_launches = generality_path(dev, base_np, queries, args.n_base, t_start)
 
         # ---- 8.–10. the scale-out path --------------------------------------
-        scale_launches, l2_uses, coll, gt_live = scale_out_path(base_np, queries, gt, spill, t_start)
+        scale_launches, l2_uses, coll, gt_live = scale_out_path(base_np[:min(N_SCALE, n)], queries,
+                                                                spill, t_start)
         # ---- 10b. the serving router over the scale-out collection ----------
         router_launches = serving_router(coll, queries, gt_live, t_start)
         del coll
@@ -3688,6 +4131,17 @@ def main() -> int:
     gnn_launches = gnn_training_path(dev, t_start)
     l2_uses["gnn_example"] = gnn_launches["l2_batch"]
 
+    # ---- 16. the paper's own workload: flash-ann's two cells ------------------
+    ann_ref_launches, ann_launches = flash_ann_path(dev, args.ann_inc, t_start)
+    l2_uses["flash_ann"] = ann_ref_launches["l2_batch"] + ann_launches["l2_batch"]
+
+    # ---- 17. BERT4Rec's serving cells through launch/steps --------------------
+    cell_launches = recsys_cells_path(dev, t_start)
+
+    # ---- 18. the examples -------------------------------------------------------
+    ex_launches = examples_path(dev, t_start)
+    l2_uses["examples"] = ex_launches["l2_batch"]
+
     rows = []
     for name, key in (("flash_round", "flash_round"), ("flash_expand", "flash_expand_w4"),
                       ("flash_beam", "flash_beam_ef64_w1"),
@@ -3698,7 +4152,8 @@ def main() -> int:
                      "launches": (launches[name] + inc_launches[name] + bulk_launches[name] + snap_launches[name]
                                   + scale_launches[name] + retrieval_launches[name] + base_launches[name]
                                   + gen_launches[name] + serve_launches[name] + train_launches[name]
-                                  + gnn_launches[name]),
+                                  + gnn_launches[name] + ann_ref_launches[name] + ann_launches[name]
+                                  + cell_launches[name] + ex_launches[name]),
                      "max_abs_err": kr["max_abs_err"], "ms": kr["ms"],
                      "plain_ms": kr["plain_ms"], "bound_ms": kr["bound_ms"], "bound_by": kr["bound_by"],
                      "library_ms": kr["library_ms"], "shape": kr["shape"]})
@@ -3711,13 +4166,17 @@ def main() -> int:
             rows[-1]["assignment_shape"] = {f: kern["l2_batch_assign"][f] for f in (
                 "shape", "max_abs_err", "ms", "ms_warm", "device_ms", "plain_ms", "bound_ms",
                 "bound_fp32_fma_ms", "library_ms")}
+            rows[-1]["d768"] = {f: kern["l2_batch_d768"][f] for f in (
+                "shape", "max_abs_err", "atol", "top10_rows_differ", "top10_near_ties", "ms", "device_ms",
+                "plain_ms", "bound_ms", "bound_by", "bound_fp32_fma_ms", "library_ms")}
         if name == "flash_beam":
             rows[-1]["launches_by_use"] = {"main_build": build_launches[name],
                                            "main_search": launches[name] - build_launches[name],
                                            "incremental": inc_launches[name],
                                            "incremental_bulk": bulk_launches[name], "snapshot": snap_launches[name],
                                            "scale_out": scale_launches[name], "baselines": base_launches[name],
-                                           "generality": gen_launches[name], "serving": serve_launches[name]}
+                                           "generality": gen_launches[name], "serving": serve_launches[name],
+                                           "flash_ann": ann_launches[name], "examples": ex_launches[name]}
             rows[-1]["w16_r96"] = kern["limits"]["flash_beam_w16_r96"]
             rows[-1]["flat_w4_r24"] = {key: kern["flat_shapes"][key] for key in (
                 "flash_beam_w4_r24_search", "flash_beam_w4_r24_insert_batch")}
@@ -3728,10 +4187,12 @@ def main() -> int:
                                            "incremental_bulk": bulk_launches[name], "snapshot": snap_launches[name], "scale_out": scale_launches[name],
                                            "retrieval_graph": retrieval_launches[name],
                                            "baselines": base_launches[name], "generality": gen_launches[name],
-                                           "serving": serve_launches[name], "gnn_example": gnn_launches[name]}
+                                           "serving": serve_launches[name], "gnn_example": gnn_launches[name],
+                                           "flash_ann": ann_launches[name], "examples": ex_launches[name]}
             rows[-1]["table_64k"] = kern["limits"]["table_64k"]
         if name == "flash_scan":
-            rows[-1]["launches_by_use"] = {"retrieval": retrieval_launches[name], "training": train_launches[name]}
+            rows[-1]["launches_by_use"] = {"retrieval": retrieval_launches[name], "training": train_launches[name],
+                                           "recsys_cells": cell_launches[name], "examples": ex_launches[name]}
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -1,16 +1,18 @@
-"""Architecture registry of the port: ``get_arch(<id>)`` resolution.
+"""Architecture registry of the port: ``get_arch(<id>)`` resolution for
+the ten assigned architectures and the paper's own ``flash-ann`` workload
+(the reference's ``configs/registry.py``, entry for entry).
 
-Ported: the five LM architectures (``qwen2-72b``, ``qwen1.5-0.5b``,
-``llama3.2-3b``, ``deepseek-v3-671b``, ``moonshot-v1-16b-a3b``; serving
-through ``models/transformer.py``) and the recsys model ``bert4rec``
-(serving and training, ``repro_torch.train``), each with its full and
-reduced configs and its assigned input shapes (the reference's
-``configs/registry.py``). ``train_batch``'s 65,536 sessions are the
-reference's global batch; one card takes a cut of it per step. The four
-GNN architectures (``gatedgcn``, ``egnn``, ``nequip``, ``equiformer-v2``;
-``models/gnn/``, trained through ``launch/steps.gnn_train_step``) share
-``GNN_SHAPES``. ``flash-ann`` and ``assigned_cells`` raise
-``NotImplementedError`` until ROADMAP queue 1, item 9c ports them.
+Each entry holds its full and reduced configs and its assigned input
+shapes: the five LM architectures (``qwen2-72b``, ``qwen1.5-0.5b``,
+``llama3.2-3b``, ``deepseek-v3-671b``, ``moonshot-v1-16b-a3b``;
+``models/transformer.py``), the four GNN architectures (``gatedgcn``,
+``egnn``, ``nequip``, ``equiformer-v2``; ``models/gnn/``), the recsys
+model ``bert4rec`` and ``flash-ann``, whose configs are the Flash coder's
+settings (a dict) and whose two cells are a segment build and a fan-out
+search (``graph/segmented.py``). ``assigned_cells`` lists the 40 graded
+(arch, shape) pairs, ``flash-ann`` left out. Steps per cell live in
+``launch/steps.py``; this module is metadata. The shapes are the
+reference's global sizes: one card takes a cut of a pod's batch per step.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from repro_torch.models.recsys.bert4rec import Bert4RecConfig
 @dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str  # train | prefill | decode | serve | bulk_serve | retrieval
+    kind: str  # train | prefill | decode | serve | bulk_serve | retrieval | ann_build | ann_search
     dims: dict[str, int] = field(default_factory=dict)
 
 
@@ -68,11 +70,17 @@ RECSYS_SHAPES = [
     ShapeSpec("retrieval_cand", "retrieval", {"global_batch": 1, "n_candidates": 1_000_000}),
 ]
 
+FLASH_ANN_SHAPES = [
+    # the paper's own workload: per-device segment build + fan-out search
+    ShapeSpec("segment_build", "ann_build", {"segment_size": 100_000, "dim": 768}),
+    ShapeSpec("fanout_search", "ann_search", {"n_queries": 1024, "dim": 768, "k": 10}),
+]
+
 
 @dataclass(frozen=True)
 class Arch:
     arch_id: str
-    family: str
+    family: str  # lm | gnn | recsys | ann
     make_full: Callable[[], Any]
     make_reduced: Callable[[], Any]
     shapes: tuple[ShapeSpec, ...]
@@ -142,19 +150,23 @@ REGISTRY: dict[str, Arch] = {
         _reduced_bert4rec, tuple(RECSYS_SHAPES),
         notes="bidirectional sequential recsys [arXiv:1904.06690]",
     ),
+    "flash-ann": Arch(
+        "flash-ann", "ann",
+        lambda: {"d_f": 256, "m_f": 16, "l_f": 4, "h": 8, "dim": 768},
+        lambda: {"d_f": 32, "m_f": 16, "l_f": 4, "h": 8, "dim": 64},
+        tuple(FLASH_ANN_SHAPES),
+        notes="the paper's own workload: segmented HNSW-Flash build/search",
+    ),
 }
 
 
 def get_arch(arch_id: str) -> Arch:
     if arch_id not in REGISTRY:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP queue 1, item 9c); "
-            f"ported: {sorted(REGISTRY)}"
-        )
+        raise KeyError(f"unknown arch {arch_id!r}; available: {sorted(REGISTRY)}")
     return REGISTRY[arch_id]
 
 
-def assigned_cells():
-    """The reference's graded (arch × shape) cells: waits for ``flash-ann``
-    and the rest of the registry (ROADMAP queue 1, item 9c)."""
-    raise NotImplementedError("assigned_cells is not ported yet (ROADMAP queue 1, item 9c)")
+def assigned_cells() -> list[tuple[str, str]]:
+    """The 40 graded (arch, shape) cells in registry order, ``flash-ann``
+    (family ``ann``) left out."""
+    return [(aid, s.name) for aid, arch in REGISTRY.items() if arch.family != "ann" for s in arch.shapes]

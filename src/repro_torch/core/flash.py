@@ -78,6 +78,11 @@ class FlashCoder(NamedTuple):
         return self.codebooks.shape[2]
 
     @property
+    def code_bytes(self) -> float:
+        """Bytes per encoded vector, 4-bit packed (M·log2 K / 8)."""
+        return self.m_f * (self.k.bit_length() - 1) / 8.0
+
+    @property
     def table_quant(self) -> qz.TableQuant:
         return qz.TableQuant(self.dist_min, self.delta, self.h_bits)
 

@@ -1,7 +1,7 @@
 """Deterministic synthetic data: the vectors and the CSR graph of the
 neighbour sampler (numpy, the same generators the reference package uses,
-so both packages see identical data from one seed) and the LM token
-stream (reference: ``repro.data.synthetic``).
+so both packages see identical data from one seed), the LM token stream
+and the recsys session batch (reference: ``repro.data.synthetic``).
 
 A batch is a pure function of (seed, step, shard), so any host, or a
 restarted one, draws exactly the same batch.
@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.recsys.bert4rec import Bert4RecConfig, sample_training_batch
 from repro_torch.utils import resolve_device
 
 
@@ -46,6 +47,20 @@ def lm_batch(seed: int, step: int, shard: int, *, batch: int, seq: int, vocab: i
     u = torch.clamp_min(u * (1.0 - 1e-6) + 1e-6, 1e-6)
     toks = torch.clamp((u.pow(-0.7) - 1).to(torch.int32), 0, vocab - 1)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def recsys_batch(seed: int, step: int, shard: int, *, batch: int, seq: int, n_items: int,
+                 mask_prob: float = 0.2, device: str | torch.device = "cuda") -> dict:
+    """Popularity-skewed sessions and cloze mask positions on ``device``:
+    ``bert4rec.sample_training_batch`` from the (seed, step, shard)
+    generator, as ``items`` (B, S) int32 and ``mask_positions`` (B, S)
+    bool, each position masked with probability ``mask_prob`` and the last
+    always. Like :func:`lm_batch`, the draw has the reference's
+    distribution, not its bits."""
+    dev = resolve_device(device)
+    cfg = Bert4RecConfig(n_items=n_items, seq_len=seq, mask_prob=mask_prob)
+    items, mask = sample_training_batch(_generator(seed, step, shard, dev), cfg, batch)
+    return {"items": items, "mask_positions": mask}
 
 
 def random_csr_graph(seed: int, *, n_nodes: int, avg_degree: int) -> tuple[np.ndarray, np.ndarray]:

@@ -18,19 +18,39 @@ per-segment candidates. This is that serving form on one card:
     grows that segment in place; ``delete``/``compact`` map global ids to
     their segments.
 
-The stacked ``shard_map`` deployment programs of the reference
-(``make_segmented_build_fn`` and its search twin) become multi-GPU
-``torch.distributed`` work (ROADMAP queue 1, item 7) and are not ported.
+The paper's own workload (the registry's ``flash-ann`` cells) runs the
+reference's stacked programs, here on one card:
+
+  * ``fit_shared_coder`` fits one Flash coder for every segment (an
+    offline job);
+  * ``build_segment`` encodes a segment and runs the incremental build
+    (``hnsw.build_hnsw_jit``) over the unblocked ``FlashBackend``;
+    ``build_segments_vmapped`` runs it segment after segment and stacks
+    the results (``SegmentedIndexes``: a leading (S,) axis on every
+    tensor);
+  * ``search_segment`` searches one segment and offsets its ids;
+    ``search_segments_local`` merges the S·k candidates of every segment
+    into a global top-k (``jax.lax.top_k``'s order on ties).
+
+The reference's ``shard_map`` forms of the last two
+(``make_segmented_build_fn``, ``make_segmented_search_fn``: one segment per
+device, an ``all_gather`` before the merge) become multi-GPU
+``torch.distributed`` work (ROADMAP queue 1, item 7) and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from repro_torch.core import flash as fl
+from repro_torch.graph.backends import FlashBackend
 from repro_torch.graph.beam import INF
 from repro_torch.graph.engine import BuildParams
-from repro_torch.graph.hnsw import SearchResult
+from repro_torch.graph.hnsw import HNSWIndex, SearchResult, build_hnsw_jit, search_hnsw
 from repro_torch.graph.index import AnnIndex
 from repro_torch.graph.rerank import (
     ExactReranker,
@@ -40,7 +60,122 @@ from repro_torch.graph.rerank import (
     rerank_mode,
 )
 from repro_torch.kernels import ops
-from repro_torch.utils import resolve_device
+from repro_torch.utils import resolve_device, topk_first
+
+_MESH_TODO = (
+    "the shard_map programs (one segment per device, an all_gather before the "
+    "merge) become multi-GPU torch.distributed work, not ported yet: ROADMAP "
+    "queue 1, item 7; on one card use build_segments_vmapped / search_segments_local"
+)
+
+
+class SegmentedIndexes(NamedTuple):
+    """Stacked per-segment indexes: every tensor of ``index`` has a leading
+    (S,) axis (``entry`` is an (S,) int32 tensor), and its backend is one
+    ``FlashBackend`` holding the shared coder and the (S, n_s, M) codes."""
+
+    index: HNSWIndex
+
+    @property
+    def n_segments(self) -> int:
+        return int(self.index.adj0.shape[0])
+
+    def segment(self, s: int) -> HNSWIndex:
+        """Segment ``s``'s index, as :func:`build_segment` returned it."""
+        ix = self.index
+        return HNSWIndex(
+            adj0=ix.adj0[s], adj0_d=ix.adj0_d[s], adj_up=ix.adj_up[s], adj_up_d=ix.adj_up_d[s],
+            levels=ix.levels[s], entry=int(ix.entry[s]),
+            backend=FlashBackend(ix.backend.coder, ix.backend.codes[s]),
+        )
+
+
+def fit_shared_coder(seed: int, sample, *, d_f: int, m_f: int, l_f: int = 4, h: int = 8,
+                     kmeans_iters: int = 25, device: str | torch.device = "cuda") -> fl.FlashCoder:
+    """Offline: one Flash coder for all segments, fitted on ``sample``
+    (``core.flash.fit_flash``; ``seed`` seeds its k-means as the
+    reference's key does)."""
+    return fl.fit_flash(sample, d_f=d_f, m_f=m_f, l_f=l_f, h=h, kmeans_iters=kmeans_iters,
+                        seed=seed, device=device)
+
+
+def build_segment(data_seg: torch.Tensor, coder: fl.FlashCoder, levels, entries, *,
+                  params: BuildParams, stats: list | None = None) -> HNSWIndex:
+    """One segment's build: encode ``data_seg`` (n_s, D), wrap the codes in
+    the unblocked ``FlashBackend`` and run the incremental build
+    (``build_hnsw_jit``) with the host plans ``levels`` / ``entries``
+    (``sample_levels`` / ``prefix_entries``). Every segment runs this same
+    program; ``params.width`` widens every segment's beam at once.
+    ``stats`` (a list) receives the build's ``BuildStats``."""
+    backend = FlashBackend(coder, fl.encode(coder, data_seg))
+    index, st = build_hnsw_jit(data_seg, backend, levels, entries, params=params)
+    if stats is not None:
+        stats.append(st)
+    return index
+
+
+def build_segments_vmapped(data_segs: torch.Tensor, coder: fl.FlashCoder, levels, entries, *,
+                           params: BuildParams, stats: list | None = None) -> SegmentedIndexes:
+    """The reference's local form (a ``vmap`` over the segment axis of
+    ``data_segs`` (S, n_s, D), with ``levels`` / ``entries`` (S, …)): on one
+    card the segments build one after another, and the results stack.
+    ``stats`` (a list) receives each segment's ``BuildStats`` in order."""
+    built = [build_segment(data_segs[s], coder, np.asarray(levels[s]), np.asarray(entries[s]), params=params,
+                           stats=stats)
+             for s in range(data_segs.shape[0])]
+    dev = data_segs.device
+    stacked = HNSWIndex(
+        adj0=torch.stack([b.adj0 for b in built]), adj0_d=torch.stack([b.adj0_d for b in built]),
+        adj_up=torch.stack([b.adj_up for b in built]), adj_up_d=torch.stack([b.adj_up_d for b in built]),
+        levels=torch.stack([b.levels for b in built]),
+        entry=torch.tensor([b.entry for b in built], dtype=torch.int32, device=dev),
+        backend=FlashBackend(coder, torch.stack([b.backend.codes for b in built])),
+    )
+    return SegmentedIndexes(index=stacked)
+
+
+def make_segmented_build_fn(mesh, *, params: BuildParams, seg_axes=("pod", "data")):
+    """The mesh form of :func:`build_segments_vmapped`: not ported (item 7)."""
+    raise NotImplementedError(_MESH_TODO)
+
+
+def search_segment(index: HNSWIndex, queries: torch.Tensor, *, k: int, ef_search: int, id_offset: int,
+                   max_layers: int | None = None, rerank_vectors: torch.Tensor | None = None):
+    """One segment's search (W = 1): (global ids (Q, k) int32, dists).
+    Local ids move by ``id_offset``; −1 stays −1. With ``rerank_vectors``
+    (the segment's originals) the dists are exact squared L2, which a
+    cross-segment merge needs: quantized sums compare only within a coder."""
+    if rerank_vectors is None:
+        spec, reranker = SearchSpec(k=k, ef=ef_search, rerank="none"), None
+    else:
+        spec, reranker = SearchSpec(k=k, ef=ef_search), ExactReranker(RawVectors(rerank_vectors))
+    res = search_hnsw(index, queries, spec=spec, reranker=reranker, max_layers=max_layers)
+    gids = torch.where(res.ids >= 0, res.ids + int(id_offset), -1).to(torch.int32)
+    return gids, res.dists
+
+
+def search_segments_local(seg: SegmentedIndexes, queries: torch.Tensor, seg_sizes, *, k: int, ef_search: int,
+                          max_layers: int | None = None, seg_vectors: torch.Tensor | None = None):
+    """Fan-out search of every segment and the coordinator's merge: the
+    S·k candidates of each query, ordered segment-major as the reference
+    lays them out, and their global top-k by distance (the lower position
+    first on ties). Segment s's ids start at the sum of ``seg_sizes[:s]``.
+    Returns (ids (Q, k) int32, dists (Q, k))."""
+    offsets = np.concatenate([[0], np.cumsum(np.asarray(seg_sizes, np.int64))[:-1]])
+    gids, dists = zip(*[
+        search_segment(seg.segment(s), queries, k=k, ef_search=ef_search, id_offset=int(offsets[s]),
+                       max_layers=max_layers, rerank_vectors=None if seg_vectors is None else seg_vectors[s])
+        for s in range(seg.n_segments)
+    ])
+    all_ids, all_d = torch.cat(gids, dim=1), torch.cat(dists, dim=1)  # (Q, S·k)
+    neg, pos = topk_first(-all_d, k)
+    return all_ids.gather(1, pos), -neg
+
+
+def make_segmented_search_fn(mesh, *, k: int, ef_search: int, max_layers: int | None = None,
+                             seg_axes=("pod", "data")):
+    """The mesh form of :func:`search_segments_local`: not ported (item 7)."""
+    raise NotImplementedError(_MESH_TODO)
 
 
 class SegmentedAnnIndex:

@@ -89,11 +89,27 @@ def _encode(p: dict, blocks, cfg: Bert4RecConfig, items: torch.Tensor) -> torch.
     return L.layer_norm(x, p["ln_f"], p["ln_fb"])
 
 
+def _serve(p: dict, blocks, cfg: Bert4RecConfig, items: torch.Tensor) -> torch.Tensor:
+    """The final position's hidden state: (B, S) -> (B, D) float32 query
+    vectors."""
+    return _encode(p, blocks, cfg, items)[:, -1, :].to(torch.float32)
+
+
+def _score_all(p: dict, blocks, cfg: Bert4RecConfig, items: torch.Tensor) -> torch.Tensor:
+    """Logits over the whole vocabulary (B, V+1)."""
+    return _serve(p, blocks, cfg, items) @ p["item_embed"].T + p["out_bias"]
+
+
+def _unstack(p: dict, cfg: Bert4RecConfig) -> list:
+    """The per-block trees of the reference's tree (blocks stacked on a
+    leading ``n_blocks`` axis)."""
+    return [tree_map(lambda t, i=i: t[i], p["blocks"]) for i in range(cfg.n_blocks)]
+
+
 def bert4rec_encode(p: dict, cfg: Bert4RecConfig, items: torch.Tensor) -> torch.Tensor:
-    """items (B, S) -> hidden (B, S, D) over the reference's parameter tree
-    (blocks stacked on a leading ``n_blocks`` axis); carries gradients."""
-    blocks = [tree_map(lambda t, i=i: t[i], p["blocks"]) for i in range(cfg.n_blocks)]
-    return _encode(p, blocks, cfg, items)
+    """items (B, S) -> hidden (B, S, D) over the reference's parameter tree;
+    carries gradients."""
+    return _encode(p, _unstack(p, cfg), cfg, items)
 
 
 def bert4rec_loss(p: dict, cfg: Bert4RecConfig, items: torch.Tensor, mask_positions: torch.Tensor) -> torch.Tensor:
@@ -111,6 +127,16 @@ def bert4rec_loss(p: dict, cfg: Bert4RecConfig, items: torch.Tensor, mask_positi
     ll = lp.gather(-1, items[..., None])[..., 0]
     m = mask_positions.to(torch.float32)
     return -torch.sum(ll * m) / torch.clamp_min(torch.sum(m), 1.0)
+
+
+def bert4rec_serve(p: dict, cfg: Bert4RecConfig, items: torch.Tensor) -> torch.Tensor:
+    """:meth:`Bert4Rec.serve` over the parameter tree."""
+    return _serve(p, _unstack(p, cfg), cfg, items)
+
+
+def bert4rec_score_all(p: dict, cfg: Bert4RecConfig, items: torch.Tensor) -> torch.Tensor:
+    """:meth:`Bert4Rec.score_all` over the parameter tree."""
+    return _score_all(p, _unstack(p, cfg), cfg, items)
 
 
 class Bert4Rec(nn.Module):
@@ -143,22 +169,26 @@ class Bert4Rec(nn.Module):
     def device(self) -> torch.device:
         return self.item_embed.device
 
+    def _trees(self) -> tuple[dict, list]:
+        """The top-level parameters and the per-block trees."""
+        return {k: getattr(self, k) for k in _TOP}, [blk.params() for blk in self.blocks]
+
     @torch.no_grad()
     def encode(self, items: torch.Tensor) -> torch.Tensor:
         """items (B, S) int -> hidden (B, S, D). Bidirectional attention."""
-        top = {k: getattr(self, k) for k in _TOP}
-        return _encode(top, [blk.params() for blk in self.blocks], self.cfg, items)
+        return _encode(*self._trees(), self.cfg, items)
 
+    @torch.no_grad()
     def serve(self, items: torch.Tensor) -> torch.Tensor:
         """Online scoring: the final position's hidden state (the next-item
         query vector). items (B, S) with items[:, -1] == mask_id by
         convention. Returns (B, D) float32."""
-        return self.encode(items)[:, -1, :].to(torch.float32)
+        return _serve(*self._trees(), self.cfg, items)
 
     @torch.no_grad()
     def score_all(self, items: torch.Tensor) -> torch.Tensor:
         """Bulk scoring: (B, S) -> logits over the full item vocab (B, V+1)."""
-        return self.serve(items) @ self.item_embed.T + self.out_bias
+        return _score_all(*self._trees(), self.cfg, items)
 
 
 def items_from_uniform(u: torch.Tensor, cfg: Bert4RecConfig) -> torch.Tensor:

@@ -146,6 +146,8 @@ def _stack_blocks(gen: torch.Generator, cfg: TransformerConfig, n: int, *, moe: 
     if n == 1:
         return tree_map(lambda t: t.unsqueeze(0), first)
     stacked = tree_map(lambda t: torch.empty((n, *t.shape), dtype=t.dtype, device=t.device), first)
+    if torch.device(device).type == "meta":  # shapes alone: nothing to draw
+        return stacked
     for i in range(n):
         blk = first if i == 0 else _init_block(gen, cfg, moe=moe, device=device)
         tree_map(lambda dst, src: dst[i].copy_(src), stacked, blk)

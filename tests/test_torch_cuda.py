@@ -26,6 +26,10 @@ step on the card agrees with the CPU's (the tolerance is in its test), and
 so do the LM family's prefill and decode at each reduced config (float32,
 atol 1e-4), ``lm_loss`` with its gradients at two and the GNN family's
 train step at each reduced config (the tolerances are in the tests).
+``l2_batch`` at the flash-ann width (D = 768) holds the same tolerance; the
+flash-ann segment build (``graph.segmented.build_segment``) equals the
+CPU's where the query tables agree; ``launch/steps``'s ``serve_bulk`` gives
+the CPU's top-100 ids except at near ties.
 """
 
 from __future__ import annotations
@@ -821,3 +825,77 @@ def test_cuda_gnn_train_step_equals_the_cpu(cuda_device, arch):
             assert bool(torch.isfinite(a).all()), path
             scale = largest if path == "['layers']/['attn']/['b1']" else float(b.abs().max())
             assert float((a - b.double()).abs().max()) <= 1e-4 * scale + atol, path
+
+
+@pytest.mark.cuda
+def test_cuda_l2_batch_at_flash_ann_width(cuda_device):
+    """``l2_batch`` at the flash-ann width (D = 768, 24 K-slices a tile: the
+    wide shape) against its plain version, 1,024 queries x 20,000 rows, with
+    the stated atol; the plan at C = 64 is the wide one too."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((1024, 768), generator=gen, device=cuda_device)
+    y = torch.randn((20_000, 768), generator=gen, device=cuda_device)
+    assert not tops._l2_plan(65536, 64, 768, x.data_ptr(), y.data_ptr()).narrow
+    got, want = tops.l2_batch(x, y), tref.l2_batch(x, y)
+    atol = 1e-5 * float((x * x).sum(1).max() + (y * y).sum(1).max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_build_segment_equals_the_cpu(cuda_device):
+    """``graph.segmented.build_segment`` (the unblocked Flash backend's
+    incremental build) on the card against the CPU from one shared coder,
+    1,000 rows at D = 64: codes, adjacency, levels and entry equal where the
+    two devices' query tables agree, else at least 99% of adjacency rows."""
+    from repro_torch.core import flash as fl
+    from repro_torch.data.synthetic import vector_dataset
+    from repro_torch.graph import segmented as seg
+    from repro_torch.graph.engine import BuildParams, prefix_entries, sample_levels
+
+    params = BuildParams(r_upper=8, r_base=16, ef=48, batch=32, max_layers=3)
+    rows = torch.from_numpy(vector_dataset(0, n=1000, d=64))
+    coder = seg.fit_shared_coder(0, rows, d_f=32, m_f=16, kmeans_iters=8, device="cpu")
+    levels = sample_levels(0, 1000, r_upper=8, max_layers=3)
+    entries = prefix_entries(levels, params.batch)
+    cpu = seg.build_segment(rows, coder, levels, entries, params=params)
+    card = seg.build_segment(rows.to(cuda_device), fl.FlashCoder(*(t.to(cuda_device) for t in coder)), levels,
+                             entries, params=params)
+    agree = int((fl.query_ctx(coder, rows).adt_q != fl.query_ctx(
+        fl.FlashCoder(*(t.to(cuda_device) for t in coder)), rows.to(cuda_device)).adt_q.cpu()).sum()) == 0
+    assert torch.equal(card.backend.codes.cpu(), cpu.backend.codes)
+    if agree:
+        for f in ("adj0", "adj0_d", "adj_up", "levels"):
+            assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+        assert card.entry == cpu.entry
+    else:
+        assert float((card.adj0.cpu() == cpu.adj0).all(1).double().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_serve_bulk_equals_the_cpu(cuda_device):
+    """``launch/steps``'s ``serve_bulk`` step at the reduced config with a
+    70,000-row table (two 65,536-row chunks), 64 sessions in blocks of 16 on
+    the card against one block on the CPU from one set of weights: top-100
+    ids equal, except where the CPU's scores of the differing ids lie within
+    1e-5 of the 100th; scores within atol 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import steps as st
+    from repro_torch.models.recsys import bert4rec as b4r
+    from repro_torch.utils import tree_map
+
+    cfg = dataclasses.replace(get_arch("bert4rec").make_reduced(), n_items=70_000)
+    params = b4r.params_tree(b4r.Bert4Rec(cfg, torch.Generator().manual_seed(0), device="cpu"))
+    items = torch.randint(0, cfg.n_items, (64, cfg.seq_len), generator=torch.Generator().manual_seed(1),
+                          dtype=torch.int32)
+    items[:, -1] = cfg.mask_id
+    fn = st.build_bundle("bert4rec", "serve_bulk", reduced=True, cfg_override={"n_items": 70_000},
+                         device=cuda_device).fn
+    ids_c, s_c = fn(tree_map(lambda t: t.to(cuda_device), params), items.to(cuda_device), block=16)
+    ids_p, s_p = fn(params, items)
+    logits = b4r.bert4rec_score_all(params, cfg, items)
+    for r in range(items.shape[0]):
+        extra = ids_c[r].cpu().long()[~torch.isin(ids_c[r].cpu(), ids_p[r])]
+        assert bool(((logits[r, extra] - s_p[r, -1]).abs() <= 1e-5).all()), r
+    torch.testing.assert_close(s_c.cpu(), s_p, rtol=0, atol=1e-4)

@@ -7,7 +7,7 @@
   the same numpy draws in the same order.
 * The registry's four GNN entries equal the reference's dataclasses field
   by field, full and reduced, and ``GNN_SHAPES`` equals the reference's;
-  ``flash-ann`` and ``assigned_cells`` raise, naming item 9c.
+  ``flash-ann`` resolves and ``assigned_cells()`` has the 40 graded cells.
 * One ``gnn_train_step`` against the reference's ``build_bundle(arch,
   "molecule", mesh (1, 1), reduced=True).fn``, jitted without shardings,
   on the same arrays: the reference's weights carried by
@@ -100,10 +100,8 @@ def test_registry_matches_reference():
         assert [(s.name, s.kind, s.dims) for s in t.shapes] == [(s.name, s.kind, s.dims) for s in j.shapes]
     assert [(s.name, s.kind, s.dims) for s in treg.GNN_SHAPES] == [
         (s.name, s.kind, s.dims) for s in jreg.GNN_SHAPES]
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        treg.get_arch("flash-ann")
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        treg.assigned_cells()
+    assert treg.get_arch("flash-ann").family == "ann"
+    assert len(treg.assigned_cells()) == 40
 
 
 def _shape(name: str):

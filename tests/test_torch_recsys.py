@@ -1,7 +1,7 @@
 """The port's BERT4Rec retrieval path against the reference package's.
 
 * The registry's ``bert4rec`` entry equals the reference's, full and
-  reduced; ``flash-ann`` (not ported yet) raises ``NotImplementedError``.
+  reduced; ``flash-ann`` resolves to the reference's coder settings.
 * The reference's ``init_bert4rec`` parameters, carried by
   ``params_from_jax``, give ``encode``/``serve``/``score_all`` within atol
   2e-5 of ``bert4rec_encode``/``bert4rec_serve``/``bert4rec_score_all``
@@ -77,8 +77,7 @@ def test_registry_matches_reference():
     assert [(s.name, s.kind, s.dims) for s in treg.RECSYS_SHAPES] == [
         (s.name, s.kind, s.dims) for s in jreg.RECSYS_SHAPES
     ]
-    with pytest.raises(NotImplementedError, match="queue 1, item 9c"):
-        treg.get_arch("flash-ann")
+    assert treg.get_arch("flash-ann").make_full() == jreg.get_arch("flash-ann").make_full()
 
 
 @pytest.mark.parametrize("cfg", [
