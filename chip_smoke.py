@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
 
-    python3 chip_smoke.py              # the full run: 200k x 128 vectors, 100k in 64 segments
-    python3 chip_smoke.py --n 100000   # quick
+    python3 chip_smoke.py              # the full run: 100k x 128 vectors, 50k in 64 segments
+    python3 chip_smoke.py --n 50000    # quick
 
 Phases, each printing one JSON line (any failure raises, so the exit is
 non-zero and no result line is printed):
@@ -33,10 +33,10 @@ non-zero and no result line is printed):
             at W = 16, R = 96 (1,536 slots on 1,024 threads), ef ∈ {64,
             256}, against its plain version and the ``flash_expand`` loop:
             bit-equal. The flat graphs' shapes (``generality``): bulk
-            rounds' (B, C) ∈ {16,384, 848} × {32, 48, 112} through
+            rounds' (B, C) ∈ {16,384, 8,616} × {32, 48, 112} through
             ``flash_round``, ``flash_beam`` at W = 4, R = 24 with a quarter
             of the slots empty (ef 128, Q 1,000; ef 64, Q 32): bit-equal.
-            ``l2_batch`` at the flash-ann width (1,024 x 200,000 x 768, the
+            ``l2_batch`` at the flash-ann width (1,024 x 100,000 x 768, the
             wide plan) against its plain version, with its top-10 ids.
 3. build    ``AnnIndex.build(algo="hnsw", backend="flash_blocked",
             strategy="bulk")`` over the ``--n`` base rows of one
@@ -53,16 +53,16 @@ non-zero and no result line is printed):
             share and the top five kernels by device time.
 5. check    on small inputs the card's path equals the plain CPU path: beam
             search on the built index with the same query tables, a whole
-            20k-vector build from the same coder, and an 8k-row
+            10k-vector build from the same coder, and an 8k-row
             ``SegmentedAnnIndex`` (4 segments) built on the card, restored
             on the CPU, then grown, pruned, compacted and searched on both;
             and HNSW, Vamana and NSG, bulk and incremental, over fp32 and
             hand-made PQ (integer codebooks), SQ (s2 = 1) and PCA (zero
-            mean, identity columns) backends on 2,000 integer rows in
+            mean, identity columns) backends on 500 integer rows in
             [−8, 8] at D = 32 (every distance an exact float32 integer):
             graphs, distances, entries and n_dists equal on card and CPU;
             and flat Vamana and NSG over ``flash_blocked`` at r_base 24,
-            W 4 (bulk over 20,000 rows, incremental over 4,000, the NSG
+            W 4 (bulk over 10,000 rows, incremental over 2,000, the NSG
             from one k-NN graph) from one coder fitted on the card: graphs,
             n_dists and a search at ef 128 equal where the query tables
             agree.
@@ -76,14 +76,14 @@ non-zero and no result line is printed):
             insert batches (busy share, top five kernels, host and card ms
             per batch); beside it the bulk build of the same rows (counted
             apart, as ``incremental_bulk``); and a
-            2,000-row incremental build with an M = 8 coder (the byte-wise
+            1,000-row incremental build with an M = 8 coder (the byte-wise
             mirror layout) on the card and on the CPU from one coder's
             state, bit-equal where the query tables agree.
 7. snapshot the main index saved with ``serve.snapshot.save_index`` and
             loaded back on the card (save and load seconds, bytes): the
             1,000 queries at ef = 64, W = 1 must return the live ids and
             distances. Then ``ShardedBuilder(workers=2, snapshot_path=…,
-            attach=True)`` over the first 16,384 rows in 8 segments (a spawn
+            attach=True)`` over the first 8,192 rows in 8 segments (a spawn
             pool sharing the card) must attach segments bit-equal to the
             inline build of the same plan; both walls and
             ``model_parallel_wall`` of the inline walls.
@@ -115,7 +115,7 @@ non-zero and no result line is printed):
             policy's shed or reject, which are counted) or a supervisor
             restart fails the run.
 7b. baselines  the paper's build-speed comparison: bulk HNSW with
-            ``BuildParams()`` over the first ``--n-base`` (50,000) rows of the main
+            ``BuildParams()`` over the first ``--n-base`` (25,000) rows of the main
             draw for fp32, pq (m = 16, l_pq = 8, 10 k-means iterations), sq
             (8 bits), pca (α = 0.9) and ``flash_blocked`` (the main path's
             coder) (``benchmarks/bench_indexing.py:212-215``): coder fit and
@@ -268,20 +268,34 @@ non-zero and no result line is printed):
             phase's.
 16. flash_ann  the paper's own workload, the registry's ``flash-ann``
             cells (D 768; coder d_f 256, M 16, 4-bit, H 8; 2 segments of
-            100,000 rows; 1,024 queries, k 10) on ``vector_dataset(seed=0,
-            n=201,024, d=768)``, ``BuildParams(r_upper=16, r_base=32, ef=128,
+            50,000 rows, the registry's 100,000 cut; 1,024 queries, k 10) on
+            ``vector_dataset(seed=0, n=101,024, d=768)``, ``BuildParams(r_upper=16, r_base=32, ef=128,
             batch=64, max_layers=3)``. (a) ``flash_ann_reference``: the
             reference's single-device programs (``fit_shared_coder``,
             ``build_segments_vmapped`` over the unblocked Flash backend,
             ``search_segments_local`` with the segments' vectors at ef ∈ {96,
             256}) over the first ``--ann-inc`` rows of each segment, and the
             card against the CPU on a 1,024-row ``build_segment``. (b)
-            ``SegmentedAnnIndex.build`` over both 100,000-row segments (bulk
+            ``SegmentedAnnIndex.build`` over both 50,000-row segments (bulk
             ``flash_blocked``), the fan-out search at ef ∈ {96, 256}, W ∈ {1,
-            4}, exact rerank, against ``exact_knn`` over the 200,000 rows
+            4}, exact rerank, against ``exact_knn`` over the 100,000 rows
             (cross-checked against a plain loop); recall at ef 256 at least
             ½ a scan of every segment's codes keeping 256; ``flash_round``,
             ``flash_beam`` and ``l2_batch`` must launch.
+16b. mesh   the segment layer across two ranks (``launch.mesh.run_ranks``:
+            both on the one card over ``gloo``, or one a card over
+            ``nccl`` where there are two or more). (a) phase 16 (a)'s
+            inputs through ``make_segmented_build_fn`` (equal to its
+            ``build_segments_vmapped`` tensor for tensor on every rank) and
+            ``make_segmented_search_fn`` at ef ∈ {96, 256} (ids and dists
+            equal to ``search_segments_local``'s): each rank's start-up,
+            rendezvous, build and gather s and bytes (and the bytes staged
+            through the host), QPS beside phase 16's one-card QPS. (b)
+            ``ShardedBuilder(mesh=make_segment_mesh(2))`` over the main
+            path's first 2 x 2,048 rows: mode "mesh", each rank's segment
+            equal to ``build_segments_vmapped`` on the same plan and coder,
+            recall@10 at ef 96 against ``exact_knn``, assignment and build
+            s; ``l2_batch`` must launch (the ranks' counts summed).
 17. recsys_cells  BERT4Rec's serving cells through
             ``launch/steps.build_bundle`` at the full config with seeded
             weights: ``serve_p99`` (B 512), ``serve_bulk`` (all 262,144
@@ -290,8 +304,9 @@ non-zero and no result line is printed):
             (B 1 over 1,000,000 Flash-coded candidates, one ``flash_scan`` a
             call): ms or s, model FLOPs/s over the float32 peak.
 18. examples  ``examples/torch_quickstart.py``,
-            ``torch_distributed_build.py`` (4 segments of 500 rows) and
-            ``torch_retrieval_serving.py``, each ``main()`` on the card.
+            ``torch_distributed_build.py`` (2,000 rows in 2 segments on 2
+            ranks, ``--ranks 2``) and ``torch_retrieval_serving.py``, each
+            ``main()`` on the card.
 
 Launch counts are zeroed just before each path (the main path: phases 3–4;
 the incremental path and the bulk build beside it: phase 6, each counted
@@ -300,8 +315,9 @@ serving path: phases 7d and 10b, each counted, then summed; the
 baselines and generality paths: phases 7b and 7c; the scale-out path:
 phases 8–10; the retrieval path: phase 11; the training path: phase 12
 (b)–(d); the GNN example's path: phase 15 (c); the flash-ann paths:
-phase 16 (a) and (b), each; the recsys cells: phase 17; the examples:
-phase 18) and read just after it;
+phase 16 (a) and (b), each; the mesh path: phase 16b, in each rank,
+then summed; the recsys cells: phase 17; the examples: phase 18, the
+distributed example's ranks' counts added) and read just after it;
 the script fails if a kernel of a path never launched there. The LM
 serving and training paths (phases 13 and 14) and the GNN models (phase
 15 (a), (b)) have no kernel of the repo to count. The main
@@ -323,21 +339,22 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 QUERIES = 1000  # held-out search queries, the search batch
 SEGMENTS = 64  # the scale-out path's segments (benchmarks/bench_scalability.py:60-61)
-N_SCALE = 100_000  # rows of the scale-out path (PERF.md §4 gives the cut)
+N_SCALE = 50_000  # rows of the scale-out path (PERF.md §4 gives the cut)
 ADD_ROWS = 2000  # rows the scale-out path adds through routed growth
 REQUESTS = 64  # the retrieval path's request batch (examples/retrieval_serving.py:49)
 GRAPH_EF = (96, 512)  # the example's ef_search (examples/retrieval_serving.py:72), and a wider beam
 DELETE_ROWS = 10000  # ids the scale-out path deletes
-N_INC = 4000  # rows of the incremental build (phase 6; PERF.md §4 gives the cut)
-INC_CHECK_ROWS = 2000  # rows of phase 6's M = 8 build, card against CPU (PERF.md §4 gives the cut)
-N_BASE = 50_000  # rows of the baselines and generality phases (7b, 7c; PERF.md §4 gives the cut)
-POOL_ROWS = 16384  # rows of the snapshot phase's pool and inline builds (PERF.md §4 gives the cut)
+N_INC = 2000  # rows of the incremental build (phase 6; PERF.md §4 gives the cut)
+INC_CHECK_ROWS = 1000  # rows of phase 6's M = 8 build, card against CPU (PERF.md §4 gives the cut)
+N_BASE = 25_000  # rows of the baselines and generality phases (7b, 7c; PERF.md §4 gives the cut)
+POOL_ROWS = 8192  # rows of the snapshot phase's pool and inline builds (PERF.md §4 gives the cut)
 PROFILED_BATCHES = 5  # insert batches of the incremental path's profiler window (PERF.md §4)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 CUDA_CORE_OPS_PER_S = 67e12  # float32 outside the tensor cores; int32 adds counted at it
@@ -1059,7 +1076,7 @@ def small_input_checks(dev, index, queries, knn) -> dict:
     out["beam_card_equals_cpu"] = True
 
     # (b) a whole small build from one coder: card kernels vs CPU plain path
-    data = index.data[:20000]
+    data = index.data[:10000]
     be = bk.make_backend("flash_blocked", data, seed=0, r_for_blocked=16, device=dev,
                          d_f=64, m_f=16, l_f=4, h=8, kmeans_iters=8)
     state = be.state_dict()
@@ -1135,7 +1152,7 @@ def incremental_path(dev, base_np, queries, n_inc: int, t_start: float) -> dict:
     insert batches (``add`` to a copy: the same program) for the card's
     busy share and the time per insert batch on the host and on the card.
     Beside it the bulk build of the same rows, and the card against the CPU
-    path on a 2,000-row incremental build with an M = 8 coder (4 bytes per
+    path on a 1,000-row incremental build with an M = 8 coder (4 bytes per
     packed row: the byte-wise layout). Returns the path's launches (ground
     truth, the incremental build, its searches), the bulk build's beside it
     (build and searches), counted apart, and ``l2_batch``'s ground-truth
@@ -1218,7 +1235,7 @@ def incremental_path(dev, base_np, queries, n_inc: int, t_start: float) -> dict:
     sync(dev)
     bulk_launches = dict(ops.launches)
 
-    # the card against the CPU path: a 2,000-row incremental build from one
+    # the card against the CPU path: a 1,000-row incremental build from one
     # M = 8 coder's state (not counted: both counts were read above)
     d4 = data[:INC_CHECK_ROWS]
     be = bk.make_backend("flash_blocked", d4, seed=0, r_for_blocked=params.r_base, device=dev,
@@ -3147,7 +3164,7 @@ def check_flat_shapes(dev, g) -> dict:
     r_base = 24, W = 4, ef 64 to build, 128 to search), held bit for bit
     against the plain versions: ``flash_round`` at every C a flat bulk
     round scores (S = 32 random, P = 2R = 48 pool, P + E² = 112 refine)
-    over a full 16,384-row block and a remainder of 848 rows (50,000 rows
+    over a full 16,384-row block and a remainder of 8,616 rows (25,000 rows
     in blocks), and ``flash_beam`` at W = 4, R = 24 over a random
     ``N_BASE``-vertex graph with a quarter of its slots empty: 1,000 queries
     at ef 128 (the search) and 32 at ef 64 (an insert batch)."""
@@ -3175,7 +3192,9 @@ def check_flat_shapes(dev, g) -> dict:
 
 # Builds over integer data with hand-made coders (repro_torch.testing.exact):
 # every distance an exact float32 integer, so equal on the card and the CPU.
-EXACT_N, EXACT_D = 2000, 32
+# 2,000 rows cut to 1,000 when the mesh phase came, then to 500 to keep the
+# whole smoke near half its limit (PERF.md §4).
+EXACT_N, EXACT_D = 500, 32
 
 
 EXACT_CASES = [(kind, algo, strategy) for kind in ("fp32", "pq", "sq", "pca")
@@ -3213,8 +3232,8 @@ def exact_builds(device: str, src: str) -> dict:
 
 #: the flat Flash builds phase 5 holds card against CPU: (algo, strategy,
 #: rows, algorithm options), at the ``generality`` phase's parameters
-FLAT_FLASH_CASES = (("vamana", "bulk", 20000, {}), ("nsg", "bulk", 20000, dict(knn_k=24)),
-                    ("vamana", "incremental", 4000, {}), ("nsg", "incremental", 4000, dict(knn_k=24)))
+FLAT_FLASH_CASES = (("vamana", "bulk", 10000, {}), ("nsg", "bulk", 10000, dict(knn_k=24)),
+                    ("vamana", "incremental", 2000, {}), ("nsg", "incremental", 2000, dict(knn_k=24)))
 FLAT_PARAMS = dict(r_upper=8, r_base=24, ef=64, batch=32, max_layers=3, width=4, alpha=1.2)
 
 
@@ -3264,7 +3283,7 @@ def card_against_cpu_builds(dev, data) -> dict:
     time in a spawned process, on the CPU:
 
     * every algorithm (HNSW, Vamana, NSG), bulk and incremental, over every
-      baseline backend with hand-made coders on 2,000 integer rows in
+      baseline backend with hand-made coders on 500 integer rows in
       [−8, 8] at D = 32: the graphs, their distances, the entry and n_dists
       must be equal;
     * flat Vamana and NSG over ``flash_blocked`` (:data:`FLAT_FLASH_CASES`,
@@ -3521,24 +3540,26 @@ def generality_path(dev, base_np, queries, n_rows: int, t_start: float) -> dict:
 ANN_SEGMENTS = 2  # the flash-ann cells' segments on one card
 ANN_PARAMS = dict(r_upper=16, r_base=32, ef=128, batch=64, max_layers=3)  # src/repro/launch/dryrun.py:142
 ANN_EF = (96, 256)  # examples/distributed_build.py:60, and the wider beam of every Flash path
+ANN_ROWS = 50_000  # rows a segment of part (b): the registry's 100,000 cut (PERF.md §4)
 ANN_INC = 1024  # rows a segment of part (a)'s incremental build (PERF.md §4 gives the cut from 100,000)
 ANN_CHECK_ROWS = 1024  # part (a)'s card-against-CPU prefix
 
 
 def load_example(name: str):
-    """``examples/<name>.py`` as a module (the examples are not a package)."""
-    import importlib.util
+    """``examples/<name>.py`` as a module (the examples are not a package;
+    their directory goes on the path, so that the ranks an example spawns
+    import it by name too)."""
+    import importlib
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    spec = importlib.util.spec_from_file_location(name, os.path.join(root, "examples", f"{name}.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+    if folder not in sys.path:
+        sys.path.insert(0, folder)
+    return importlib.import_module(name)
 
 
 def check_l2_batch_d768(dev, g) -> dict:
     """Phase 2's ``l2_batch`` row at the flash-ann width: 1,024 queries x
-    200,000 rows at D = 768 (24 K-slices a tile, 6x the K loop of D = 128),
+    100,000 rows at D = 768 (24 K-slices a tile, 6x the K loop of D = 128),
     held against ``ref.l2_batch`` (rtol 1e-5, ``l2_atol``), timed by events
     and the profiler beside its 3xTF32 bound. Each query's 10 nearest ids by
     the kernel against those by the plain version: rows that differ are
@@ -3551,7 +3572,7 @@ def check_l2_batch_d768(dev, g) -> dict:
     from repro_torch.kernels import ops, ref
     from repro_torch.utils import topk_first
 
-    nq, nc, d = 1024, 200_000, 768
+    nq, nc, d = 1024, ANN_SEGMENTS * ANN_ROWS, 768
     x = torch.randn((nq, d), generator=g, device=dev)
     y = torch.randn((nc, d), generator=g, device=dev)
     plan = ops._l2_plan(nq, nc, d, x.data_ptr(), y.data_ptr(), ops._sm_count(dev))
@@ -3562,7 +3583,7 @@ def check_l2_batch_d768(dev, g) -> dict:
     atol = l2_atol(x, y)
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, rtol=1e-5, atol=atol):
-        raise AssertionError(f"l2_batch 1024x200000x768: off by {err} (atol {atol})")
+        raise AssertionError(f"l2_batch {nq}x{nc}x{d}: off by {err} (atol {atol})")
     ids_k, ids_p = topk_first(-got, 10)[1], topk_first(-want, 10)[1]
     rows = (ids_k.sort(1).values != ids_p.sort(1).values).any(1)
     margin = (want.gather(1, ids_k).amax(1) - want.gather(1, ids_p).amax(1))[rows]
@@ -3619,11 +3640,12 @@ def ann_card_vs_cpu(dev, rows, coder, params) -> dict:
             "adt_level_mismatch": adt_mismatch, "equal": same, "adj0_rows_equal": rows_equal}
 
 
-def flash_ann_path(dev, ann_inc: int, t_start: float) -> tuple[dict, dict]:
+def flash_ann_path(dev, ann_inc: int, t_start: float, handover: str) -> tuple[dict, dict]:
     """Phase 16: the registry's ``flash-ann`` workload (D 768; coder d_f 256,
-    M 16, 4-bit, H 8; ``segment_build``: 100,000 rows a segment;
+    M 16, 4-bit, H 8; ``segment_build``: 100,000 rows a segment, cut to
+    ``ANN_ROWS``;
     ``fanout_search``: 1,024 queries, k 10) on ``vector_dataset(seed=0,
-    n=2·100,000 + 1,024, d=768, n_clusters=64)``, one shared coder from
+    n=2·50,000 + 1,024, d=768, n_clusters=64)``, one shared coder from
     ``fit_shared_coder`` over the rows.
 
     (a) The reference's own single-device programs: ``build_segments_vmapped``
@@ -3634,15 +3656,17 @@ def flash_ann_path(dev, ann_inc: int, t_start: float) -> tuple[dict, dict]:
     recall@10 against ``exact_knn`` over those rows, QPS. Beside it the card
     against the CPU on a 1,024-row prefix (``ann_card_vs_cpu``).
     (b) The cells at full size on the port's main path:
-    ``SegmentedAnnIndex.build`` over the two 100,000-row segments
+    ``SegmentedAnnIndex.build`` over the two 50,000-row segments
     (``flash_blocked``, bulk, ``ANN_PARAMS``, each segment's own coder at the
     flash-ann settings), then the fan-out search at ef ∈ {96, 256}, W ∈ {1,
     4}, exact rerank: coder fit and build s by phase, n_dists, index bytes,
-    QPS, recall@10 against ``exact_knn`` over the 200,000 rows (``l2_batch``
+    QPS, recall@10 against ``exact_knn`` over the 100,000 rows (``l2_batch``
     at D = 768, cross-checked against a plain loop), a scan of each
     segment's codes keeping 256, the busy share over one search. At ef =
-    256 the best recall must reach ½ of the scan's. Returns the launches of
-    (a) and of (b), each read just after its path."""
+    256 the best recall must reach ½ of the scan's. (a)'s inputs, stacked
+    build, search results and QPS go to ``handover/a.pt`` for the mesh
+    phase. Returns the launches of (a) and of (b), each read just after its
+    path."""
     import torch
 
     from repro_torch.configs.registry import get_arch
@@ -3659,7 +3683,7 @@ def flash_ann_path(dev, ann_inc: int, t_start: float) -> tuple[dict, dict]:
     arch = get_arch("flash-ann")
     cfg = arch.make_full()
     cells = {s.name: s.dims for s in arch.shapes}
-    seg_rows, d = cells["segment_build"]["segment_size"], cfg["dim"]
+    seg_rows, d = min(ANN_ROWS, cells["segment_build"]["segment_size"]), cfg["dim"]
     nq, k = cells["fanout_search"]["n_queries"], cells["fanout_search"]["k"]
     coder_kw = {key: cfg[key] for key in ("d_f", "m_f", "l_f", "h")}
     params = BuildParams(**ANN_PARAMS)
@@ -3693,6 +3717,7 @@ def flash_ann_path(dev, ann_inc: int, t_start: float) -> tuple[dict, dict]:
     insert_s = sum(st.seconds["insert_batches"] for st in stats)
     gt_a = exact_knn(queries, segs.reshape(-1, d), k=k)[0].long()
     a_results = []
+    found = {}
     for ef in ANN_EF:
         kw = dict(k=k, ef_search=ef, seg_vectors=segs)
         seg.search_segments_local(built, queries[:32], np.full(ANN_SEGMENTS, ann_inc), **kw)  # warm-up
@@ -3704,8 +3729,15 @@ def flash_ann_path(dev, ann_inc: int, t_start: float) -> tuple[dict, dict]:
         if not bool(torch.isfinite(dists).all()) or tuple(ids.shape) != (nq, k):
             raise AssertionError(f"search_segments_local ef={ef}: malformed result")
         a_results.append({"ef": ef, "qps": nq / dt, "seconds": dt, "recall@10": recall_at(ids, gt_a)})
+        found[ef] = (ids.cpu(), dists.cpu())
     sync(dev)
     launches_a = dict(ops.launches)
+    ix = built.index
+    torch.save({"segs": segs.cpu(), "queries": queries.cpu(), "coder": [t.cpu() for t in coder],
+                "levels": levels, "entries": entries, "k": k, "found": found,
+                "qps": {r["ef"]: r["qps"] for r in a_results}, "build_s": a_build,
+                "built": {f: getattr(ix, f).cpu() for f in ("adj0", "adj0_d", "adj_up", "adj_up_d", "levels", "entry")}
+                | {"codes": ix.backend.codes.cpu()}}, os.path.join(handover, "a.pt"))
     out["a"] = {"rows_per_segment": ann_inc, "build_s": a_build, "insert_batches": batches,
                 "s_per_insert_batch": insert_s / max(1, batches),
                 "bootstrap_s": sum(st.seconds["bootstrap"] for st in stats),
@@ -3768,6 +3800,153 @@ def flash_ann_path(dev, ann_inc: int, t_start: float) -> tuple[dict, dict]:
           "elapsed_s": time.perf_counter() - t_start})
     scan_gate("the flash-ann fan-out search at ef=256", best, scan)
     return launches_a, launches_b
+
+
+MESH_RANKS = 2  # the mesh phase's ranks: both on the one card (gloo), or one a card (nccl)
+MESH_ROWS = 2048  # rows a segment of the mesh phase's part (b)
+MESH_FIELDS = ("adj0", "adj0_d", "adj_up", "adj_up_d", "levels", "entry", "codes")
+
+
+def graph_differs(got, want: dict) -> list:
+    """The fields of an ``HNSWIndex`` (or a stack of them) whose values differ
+    from ``want``'s."""
+    have = {f: getattr(got, f) for f in MESH_FIELDS[:-1]} | {"codes": got.backend.codes}
+    host = lambda x: np.asarray(x.cpu() if hasattr(x, "cpu") else x)  # noqa: E731
+    return [f for f in MESH_FIELDS if not np.array_equal(host(have[f]), host(want[f]))]
+
+
+def mesh_rank(mesh, handover: str) -> list:
+    """Phase 16b on one rank (module level: ``run_ranks`` pickles it). (a)
+    ``make_segmented_build_fn`` over ``handover/a.pt``'s segments, coder and
+    plans must equal flash_ann (a)'s ``build_segments_vmapped`` tensor for
+    tensor; ``make_segmented_search_fn`` over its 1,024 queries at ef ∈ {96,
+    256} must equal ``search_segments_local``'s ids and dists. (b)
+    ``ShardedBuilder(mesh=make_segment_mesh(2))`` over ``handover/b.pt``'s
+    rows (balanced, hnsw, ``BuildParams()``, the default coder) must run in
+    mode "mesh"; each rank rebuilds its own segment with
+    ``build_segments_vmapped`` on the same plan and the coder the mesh build
+    fitted, which must equal it; the first rank measures recall@10 at ef 96
+    against ``exact_knn``. Launches are counted from the start of (a) to the
+    end of (b). Returns every rank's readings."""
+    import torch
+
+    from repro_torch.core import flash as fl
+    from repro_torch.graph import segmented as seg
+    from repro_torch.graph.engine import BuildParams, prefix_entries, sample_levels
+    from repro_torch.graph.sharded import ShardConfig, ShardedBuilder
+    from repro_torch.index import exact_knn
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lm
+    from repro_torch.utils import sync
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, me = mesh.device, mesh.index
+    a = torch.load(os.path.join(handover, "a.pt"), weights_only=False)
+    out = {"rank": me, "device": str(dev), "backend": str(torch.distributed.get_backend()), **mesh.launch}
+    ops.reset_launches()
+
+    # ---- (a) flash-ann's two cells across the ranks ---------------------------
+    params = BuildParams(**ANN_PARAMS)
+    segs, queries = a["segs"].to(dev), a["queries"].to(dev)
+    coder = fl.FlashCoder(*(t.to(dev) for t in a["coder"]))
+    lm.reset_comm()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    built = seg.make_segmented_build_fn(mesh, params=params)(segs, coder, a["levels"], a["entries"])
+    sync(dev)
+    out["a_build_s"] = time.perf_counter() - t0
+    out["a_build_gather"] = dict(lm.COMM)
+    differ = graph_differs(built.index, a["built"])
+    if differ:
+        raise AssertionError(f"rank {me}: the mesh build differs from flash_ann (a)'s in {differ}")
+    offsets = np.arange(segs.shape[0]) * segs.shape[1]
+    out["a_search"] = []
+    for ef in ANN_EF:
+        fn = seg.make_segmented_search_fn(mesh, k=a["k"], ef_search=ef)
+        fn(built, queries[:32], offsets, segs)  # warm-up
+        lm.reset_comm()
+        mesh.barrier()
+        sync(dev)
+        t0 = time.perf_counter()
+        ids, dists = fn(built, queries, offsets, segs)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        want_ids, want_d = a["found"][ef]
+        if not (ids.cpu().equal(want_ids) and dists.cpu().equal(want_d)):
+            raise AssertionError(f"rank {me}: the mesh search at ef={ef} differs from search_segments_local: "
+                                 f"{int((ids.cpu() != want_ids).sum())} ids, "
+                                 f"max |Δd| {float((dists.cpu() - want_d).abs().max())}")
+        out["a_search"].append({"ef": ef, "qps": queries.shape[0] / dt, "seconds": dt,
+                                "one_card_qps": a["qps"][ef], "gather": dict(lm.COMM)})
+    del built, segs, queries
+
+    # ---- (b) ShardedBuilder's mesh mode ---------------------------------------
+    b = torch.load(os.path.join(handover, "b.pt"), weights_only=False)
+    pb = BuildParams()
+    cfg = ShardConfig(n_segments=mesh.size, algo="hnsw", params=pb, seed=0)
+    lm.reset_comm()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    res = ShardedBuilder(cfg, mesh=lm.make_segment_mesh(mesh.size), workdir=os.path.join(handover, "b"),
+                         device=dev).build(b["rows"])
+    sync(dev)
+    out["b_s"] = time.perf_counter() - t0
+    if res.mode != "mesh" or res.n_workers != mesh.size:
+        raise AssertionError(f"rank {me}: ShardedBuilder ran in mode {res.mode!r} on {res.n_workers} workers")
+    out["b"] = {"mode": res.mode, "seg_sizes": list(res.plan.seg_sizes), "assign_s": res.wall_assign_s,
+                "build_s": res.wall_build_s, "gather": dict(lm.COMM)}
+    vecs = torch.from_numpy(res.plan.load_segment(me)[0]).to(dev)
+    lv = sample_levels(cfg.seed + me, vecs.shape[0], r_upper=pb.r_upper, max_layers=pb.max_layers)
+    mine = res.index.segments[me]
+    t0 = time.perf_counter()
+    want = seg.build_segments_vmapped(vecs[None], mine.backend.coder, lv[None], prefix_entries(lv, pb.batch)[None],
+                                      params=pb).index
+    sync(dev)
+    out["b"]["vmapped_check_s"] = time.perf_counter() - t0
+    differ = graph_differs(mine.graph, {f: getattr(want, f)[0] for f in MESH_FIELDS[:-1]}
+                           | {"codes": want.backend.codes[0]})
+    if differ:
+        raise AssertionError(f"rank {me}: the mesh build's segment {me} differs from build_segments_vmapped "
+                             f"in {differ}")
+    if me == 0:
+        qb = torch.from_numpy(b["queries"]).to(dev)
+        gt = exact_knn(qb, torch.from_numpy(b["rows"]).to(dev), k=10)[0].long()
+        out["b"]["recall@10_ef96"] = recall_at(res.index.search(qb, k=10, ef=96).ids, gt)
+    sync(dev)
+    every = [None] * mesh.size
+    torch.distributed.all_gather_object(every, {**out, "launches": dict(ops.launches)})
+    return every
+
+
+def mesh_path(dev, handover: str, rows, queries, t_start: float) -> dict:
+    """Phase 16b: flash_ann (a)'s programs and ``ShardedBuilder``'s mesh mode
+    over ``MESH_RANKS`` ranks (``launch.mesh.run_ranks``: both on the card
+    over ``gloo`` on a one-card host, a card each over ``nccl`` with more);
+    ``rows`` / ``queries`` are part (b)'s. Prints the ranks, the backend,
+    ranks a card, each rank's start-up, group rendezvous, build and gather
+    seconds and bytes (and the bytes staged through the host), the search
+    program's QPS beside (a)'s one-card QPS, (b)'s assignment and build
+    seconds and recall. Returns the launches summed over the ranks."""
+    import torch
+
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    torch.save({"rows": rows, "queries": queries}, os.path.join(handover, "b.pt"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_ranks(mesh_rank, MESH_RANKS, handover, device=dev, timeout=300)
+    wall = time.perf_counter() - t_phase
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    if launches["l2_batch"] == 0:
+        raise AssertionError("the mesh path never launched l2_batch")
+    cards = torch.cuda.device_count()
+    emit({"phase": "mesh", "ranks": MESH_RANKS, "backend": ranks[0]["backend"], "cards": cards,
+          "ranks_per_card": -(-MESH_RANKS // min(MESH_RANKS, cards)), "b_rows": list(rows.shape),
+          "per_rank": [{k: v for k, v in r.items() if k != "launches"} for r in ranks],
+          "launches": launches, "phase_s": wall, "elapsed_s": time.perf_counter() - t_start})
+    return launches
 
 
 RECSYS_SEED = 0
@@ -3888,9 +4067,9 @@ def recsys_cells_path(dev, t_start: float) -> dict:
 
 
 #: the examples and the arguments the smoke gives them: the distributed
-#: example's four incremental segment builds at 500 rows (from 2,000; its
-#: program runs at the paper's width in phase 16 (a); PERF.md §4)
-EXAMPLES = (("torch_quickstart", []), ("torch_distributed_build", ["--seg-size", "500"]),
+#: example's 2,000 rows (from 8,000; its program runs at the paper's width in
+#: phase 16 (a); PERF.md §4) in two segments on two ranks
+EXAMPLES = (("torch_quickstart", []), ("torch_distributed_build", ["--seg-size", "500", "--ranks", "2"]),
             ("torch_retrieval_serving", []))
 
 
@@ -3898,7 +4077,7 @@ def examples_path(dev, t_start: float) -> dict:
     """Phase 18: the three examples' ``main()`` on the card with
     ``EXAMPLES``' arguments (their printed lines above this one), each
     timed; their recall lines come back as their returned dicts. Returns
-    the launches of all three."""
+    the launches of all three, the distributed example's ranks' included."""
     import torch
 
     from repro_torch.kernels import ops
@@ -3914,6 +4093,9 @@ def examples_path(dev, t_start: float) -> dict:
         torch.cuda.synchronize()
         out[name] = {"seconds": time.perf_counter() - t0, **res}
     launches = dict(ops.launches)
+    for res in out.values():  # what the example's ranks launched
+        for k, v in res.get("rank_launches", {}).items():
+            launches[k] += v
     for name in ("flash_round", "flash_beam", "l2_batch", "flash_scan"):
         if launches[name] == 0:
             raise AssertionError(f"the examples never launched {name}")
@@ -3929,8 +4111,9 @@ def main() -> int:
     # rows were cut to 500k, and to 400k when the GNN phase brought the run
     # to 1,173.7 s; then to 200k, with the scale-out path on its first 100k
     # rows, when the flash-ann phase (its 2 x 100,000 x 768 segments) came;
-    # the 64 segments are kept (PERF.md records every cut).
-    ap.add_argument("--n", type=int, default=200_000,
+    # then to 100k, the scale-out path on its first 50k, to keep the whole run
+    # near half its limit; the 64 segments are kept (PERF.md records every cut).
+    ap.add_argument("--n", type=int, default=100_000,
                     help="base rows of the main path (the scalability setting: 1M)")
     ap.add_argument("--n-inc", type=int, default=N_INC,
                     help="rows of the incremental build (phase 6)")
@@ -4132,8 +4315,16 @@ def main() -> int:
     l2_uses["gnn_example"] = gnn_launches["l2_batch"]
 
     # ---- 16. the paper's own workload: flash-ann's two cells ------------------
-    ann_ref_launches, ann_launches = flash_ann_path(dev, args.ann_inc, t_start)
-    l2_uses["flash_ann"] = ann_ref_launches["l2_batch"] + ann_launches["l2_batch"]
+    handover = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
+    try:
+        ann_ref_launches, ann_launches = flash_ann_path(dev, args.ann_inc, t_start, handover)
+        l2_uses["flash_ann"] = ann_ref_launches["l2_batch"] + ann_launches["l2_batch"]
+
+        # ---- 16b. the same programs across ranks -------------------------------
+        mesh_launches = mesh_path(dev, handover, base_np[:MESH_RANKS * MESH_ROWS], q_np, t_start)
+        l2_uses["mesh"] = mesh_launches["l2_batch"]
+    finally:
+        shutil.rmtree(handover, ignore_errors=True)
 
     # ---- 17. BERT4Rec's serving cells through launch/steps --------------------
     cell_launches = recsys_cells_path(dev, t_start)
@@ -4153,7 +4344,7 @@ def main() -> int:
                                   + scale_launches[name] + retrieval_launches[name] + base_launches[name]
                                   + gen_launches[name] + serve_launches[name] + train_launches[name]
                                   + gnn_launches[name] + ann_ref_launches[name] + ann_launches[name]
-                                  + cell_launches[name] + ex_launches[name]),
+                                  + mesh_launches[name] + cell_launches[name] + ex_launches[name]),
                      "max_abs_err": kr["max_abs_err"], "ms": kr["ms"],
                      "plain_ms": kr["plain_ms"], "bound_ms": kr["bound_ms"], "bound_by": kr["bound_by"],
                      "library_ms": kr["library_ms"], "shape": kr["shape"]})
@@ -4176,7 +4367,8 @@ def main() -> int:
                                            "incremental_bulk": bulk_launches[name], "snapshot": snap_launches[name],
                                            "scale_out": scale_launches[name], "baselines": base_launches[name],
                                            "generality": gen_launches[name], "serving": serve_launches[name],
-                                           "flash_ann": ann_launches[name], "examples": ex_launches[name]}
+                                           "flash_ann": ann_launches[name], "mesh": mesh_launches[name],
+                                           "examples": ex_launches[name]}
             rows[-1]["w16_r96"] = kern["limits"]["flash_beam_w16_r96"]
             rows[-1]["flat_w4_r24"] = {key: kern["flat_shapes"][key] for key in (
                 "flash_beam_w4_r24_search", "flash_beam_w4_r24_insert_batch")}

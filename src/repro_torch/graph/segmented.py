@@ -32,15 +32,21 @@ reference's stacked programs, here on one card:
     ``search_segments_local`` merges the S·k candidates of every segment
     into a global top-k (``jax.lax.top_k``'s order on ties).
 
-The reference's ``shard_map`` forms of the last two
-(``make_segmented_build_fn``, ``make_segmented_search_fn``: one segment per
-device, an ``all_gather`` before the merge) become multi-GPU
-``torch.distributed`` work (ROADMAP queue 1, item 7) and raise
-``NotImplementedError``.
+The reference's ``shard_map`` forms of the last two run across ranks
+(``launch.mesh``: one ``torch.distributed`` process a device):
+
+  * ``make_segmented_build_fn``: each rank builds its own segments with
+    ``build_segment`` on its device, then every tensor of the stack is
+    gathered along the segment axes, so every rank holds the whole
+    ``SegmentedIndexes``, bit-equal to ``build_segments_vmapped``;
+  * ``make_segmented_search_fn``: each rank searches its one segment, the
+    (Q, k) candidates are gathered axis by axis into (Q, S·k) and every
+    rank takes the same global top-k (the coordinator).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -61,13 +67,6 @@ from repro_torch.graph.rerank import (
 )
 from repro_torch.kernels import ops
 from repro_torch.utils import resolve_device, topk_first
-
-_MESH_TODO = (
-    "the shard_map programs (one segment per device, an all_gather before the "
-    "merge) become multi-GPU torch.distributed work, not ported yet: ROADMAP "
-    "queue 1, item 7; on one card use build_segments_vmapped / search_segments_local"
-)
-
 
 class SegmentedIndexes(NamedTuple):
     """Stacked per-segment indexes: every tensor of ``index`` has a leading
@@ -123,20 +122,61 @@ def build_segments_vmapped(data_segs: torch.Tensor, coder: fl.FlashCoder, levels
     built = [build_segment(data_segs[s], coder, np.asarray(levels[s]), np.asarray(entries[s]), params=params,
                            stats=stats)
              for s in range(data_segs.shape[0])]
-    dev = data_segs.device
-    stacked = HNSWIndex(
-        adj0=torch.stack([b.adj0 for b in built]), adj0_d=torch.stack([b.adj0_d for b in built]),
-        adj_up=torch.stack([b.adj_up for b in built]), adj_up_d=torch.stack([b.adj_up_d for b in built]),
-        levels=torch.stack([b.levels for b in built]),
-        entry=torch.tensor([b.entry for b in built], dtype=torch.int32, device=dev),
-        backend=FlashBackend(coder, torch.stack([b.backend.codes for b in built])),
-    )
-    return SegmentedIndexes(index=stacked)
+    return SegmentedIndexes(index=_stacked_index(coder, _stack(built)))
+
+
+#: the graph tensors of an ``HNSWIndex`` (``entry`` and the codes apart)
+_GRAPH = ("adj0", "adj0_d", "adj_up", "adj_up_d", "levels")
+
+
+def _stack(built: list) -> dict:
+    """Per-segment ``HNSWIndex``es' tensors, entries and codes stacked
+    along a new leading axis."""
+    t = {f: torch.stack([getattr(b, f) for b in built]) for f in _GRAPH}
+    t["entry"] = torch.tensor([b.entry for b in built], dtype=torch.int32, device=built[0].adj0.device)
+    t["codes"] = torch.stack([b.backend.codes for b in built])
+    return t
+
+
+def _stacked_index(coder: fl.FlashCoder, t: dict) -> HNSWIndex:
+    return HNSWIndex(**{f: t[f] for f in (*_GRAPH, "entry")}, backend=FlashBackend(coder, t["codes"]))
+
+
+def _seg_axes(mesh, seg_axes) -> tuple[str, ...]:
+    if mesh is None:
+        raise ValueError("the mesh programs need a mesh (launch.mesh.make_segment_mesh); on one device "
+                         "use build_segments_vmapped / search_segments_local")
+    return tuple(a for a in seg_axes if a in mesh.axis_names)
 
 
 def make_segmented_build_fn(mesh, *, params: BuildParams, seg_axes=("pod", "data")):
-    """The mesh form of :func:`build_segments_vmapped`: not ported (item 7)."""
-    raise NotImplementedError(_MESH_TODO)
+    """The mesh form of :func:`build_segments_vmapped` (the reference's
+    ``shard_map`` program). Returns ``build(data_segs, coder, levels,
+    entries)``, which every rank of ``mesh`` calls with the whole (S, n_s,
+    D) stack and the (S, …) host plans. The rank at position p along the
+    segment axes (row-major, the first axis major: where ``P(seg_axes)``
+    puts it) builds segments [p·S/G, (p+1)·S/G) of the G positions with
+    :func:`build_segment` on its device; ranks that differ only off those
+    axes build the same ones. Each tensor is then gathered along the
+    segment axes, and every rank returns the whole ``SegmentedIndexes`` on
+    its device."""
+    axes = _seg_axes(mesh, seg_axes)
+
+    def build(data_segs: torch.Tensor, coder: fl.FlashCoder, levels, entries) -> SegmentedIndexes:
+        s_total = int(data_segs.shape[0])
+        width = math.prod(mesh.shape[a] for a in axes)
+        if s_total % width:
+            raise ValueError(f"{s_total} segments do not tile the {width} positions of the mesh axes {axes}")
+        per, dev = s_total // width, mesh.device
+        first = mesh.axis_index(axes) * per
+        coder_dev = fl.FlashCoder(*(t.to(dev) for t in coder))
+        own = _stack([build_segment(data_segs[s].to(dev), coder_dev, np.asarray(levels[s]),
+                                    np.asarray(entries[s]), params=params)
+                      for s in range(first, first + per)])
+        return SegmentedIndexes(index=_stacked_index(coder_dev, {
+            f: torch.cat(mesh.all_gather(t, axes)) for f, t in own.items()}))
+
+    return build
 
 
 def search_segment(index: HNSWIndex, queries: torch.Tensor, *, k: int, ef_search: int, id_offset: int,
@@ -174,8 +214,38 @@ def search_segments_local(seg: SegmentedIndexes, queries: torch.Tensor, seg_size
 
 def make_segmented_search_fn(mesh, *, k: int, ef_search: int, max_layers: int | None = None,
                              seg_axes=("pod", "data")):
-    """The mesh form of :func:`search_segments_local`: not ported (item 7)."""
-    raise NotImplementedError(_MESH_TODO)
+    """The mesh form of :func:`search_segments_local` (the reference's
+    ``shard_map`` program). Returns ``search(index_stack, queries,
+    id_offsets, seg_vectors)``, which every rank calls with the whole
+    stack: the rank at position s along the segment axes searches segment
+    s on its device (exact rerank on ``seg_vectors[s]``, ids moved by
+    ``id_offsets[s]``); the (Q, k) ids and distances are gathered one axis
+    after another, in ``seg_axes``' order, as the reference's loop of
+    ``all_gather``s does, and every rank returns the same global top-k
+    (ids (Q, k) int32, dists). One segment a position: S must equal the
+    positions along the segment axes."""
+    axes = _seg_axes(mesh, seg_axes)
+
+    def search(index_stack: SegmentedIndexes, queries: torch.Tensor, id_offsets, seg_vectors: torch.Tensor):
+        width = math.prod(mesh.shape[a] for a in axes)
+        if index_stack.n_segments != width:
+            raise ValueError(f"the search program takes one segment a position of the mesh axes {axes}: "
+                             f"{index_stack.n_segments} segments, {width} positions")
+        s, dev = mesh.axis_index(axes), mesh.device
+        one = index_stack.segment(s)
+        one = one._replace(backend=FlashBackend(fl.FlashCoder(*(t.to(dev) for t in one.backend.coder)),
+                                                one.backend.codes.to(dev)),
+                           **{f: getattr(one, f).to(dev) for f in _GRAPH})
+        ids, d = search_segment(one, queries.to(dev), k=k, ef_search=ef_search,
+                                id_offset=int(id_offsets[s]), max_layers=max_layers,
+                                rerank_vectors=seg_vectors[s].to(dev))
+        for ax in axes:
+            ids = torch.cat(mesh.all_gather(ids, (ax,)), dim=1)
+            d = torch.cat(mesh.all_gather(d, (ax,)), dim=1)
+        neg, pos = topk_first(-d, k)
+        return ids.gather(1, pos), -neg
+
+    return search
 
 
 class SegmentedAnnIndex:

@@ -22,9 +22,13 @@ The scale-out layer on top of :class:`repro_torch.graph.segmented.SegmentedAnnIn
                manifest and publishes the whole in one rename; ``attach``
                loads it back. Disk is the worker → coordinator transport.
 
-The mesh mode becomes multi-GPU ``torch.distributed`` work (ROADMAP queue
-1, item 7) and raises ``NotImplementedError``; nothing falls back to
-inline.
+The mesh mode (an explicit ``mesh=`` of more than one rank, else such an
+ambient one, ``distributed.context``) makes ``build`` a collective that
+every rank of the mesh calls: the mesh's first rank assigns and fits the
+one shared coder, and the stacked program
+(``segmented.make_segmented_build_fn``) builds each rank's segments on its
+own device and gathers them, so every rank returns the whole collection.
+A 1-wide mesh degrades to the pool or inline path, as in the reference.
 
 Global id contract: the i-th vector of the stream is global id i; routing
 permutes vectors into segments and the coordinator's ``locate`` table maps
@@ -46,8 +50,10 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core import flash as fl
 from repro_torch.core.kmeans import kmeans_fit
-from repro_torch.graph.engine import BuildParams
+from repro_torch.distributed import context as dctx
+from repro_torch.graph.engine import BuildParams, prefix_entries, sample_levels
 from repro_torch.graph.index import AnnIndex
 from repro_torch.kernels import ops
 from repro_torch.utils import resolve_device, sync
@@ -57,11 +63,6 @@ _VEC_FMT = "seg_{:03d}.vec"
 _GID_FMT = "seg_{:03d}.gid"
 _PLAN_JSON = "plan.json"
 _CENTROIDS_NPY = "centroids.npy"
-
-_MESH_TODO = (
-    "the mesh build (stacked shard_map programs) becomes multi-GPU "
-    "torch.distributed work, not ported yet: ROADMAP queue 1, item 7"
-)
 
 
 # ---------------------------------------------------------------------------
@@ -479,7 +480,7 @@ class ShardConfig:
 class ShardedBuildResult:
     index: object  # SegmentedAnnIndex | None (None: published, not attached)
     plan: ShardPlan
-    mode: str  # "pool" | "inline"
+    mode: str  # "mesh" | "pool" | "inline"
     snapshot_path: str | None
     segments: list  # per-segment metrics dicts
     wall_assign_s: float
@@ -490,9 +491,11 @@ class ShardedBuildResult:
 class ShardedBuilder:
     """Streaming assignment + per-segment construction on ``device``.
 
+    A mesh of more than one rank (``mesh=``, else the ambient one) builds
+    across its ranks, each on the mesh's device for it (``_build_mesh``);
     ``workers > 1`` runs a ``spawn`` process pool of workers that all build
     on ``device`` (the kernels are built first, in this process); otherwise
-    every segment builds inline. ``mesh=`` raises ``NotImplementedError``."""
+    every segment builds inline."""
 
     def __init__(self, config: ShardConfig, *, workers: int | None = None,
                  mesh=None, workdir: str | None = None,
@@ -550,33 +553,59 @@ class ShardedBuilder:
         ``attach=False`` leaves it on disk and returns ``index=None``."""
         if (source is None) == (plan is None):
             raise ValueError("pass exactly one of source= or plan=")
-        if self.mesh is not None:
-            raise NotImplementedError(_MESH_TODO)
-        pool = self.workers is not None and self.workers > 1
+        mode, mesh = self._resolve_mode()
+        if mode == "mesh" and self.config.algo != "hnsw":
+            raise ValueError(
+                f"mesh mode runs the stacked hnsw/flash shard_map program; "
+                f"algo={self.config.algo!r} must build through workers= instead"
+            )
         t0 = time.perf_counter()
         if plan is None:
-            plan = self.assign(source)
+            plan = self._assign_on_mesh(source, mesh) if mode == "mesh" else self.assign(source)
         wall_assign = time.perf_counter() - t0
-        if pool and snapshot_path is None:
+        if mode == "pool" and snapshot_path is None:
             snapshot_path = os.path.join(self.workdir, "index")
-        n_workers = int(self.workers) if pool else 1
-        with obs.span("shard/build", mode="pool" if pool else "inline", segments=plan.n_segments,
-                      n=plan.n, workers=n_workers) as sp:
+        n_workers = self._n_workers(mode, mesh)
+        with obs.span("shard/build", mode=mode, segments=plan.n_segments, n=plan.n, workers=n_workers) as sp:
             t1 = time.perf_counter()
-            index, metrics = self._build_local(plan, snapshot_path, pool=pool, attach=attach)
+            if mode == "mesh":
+                index, metrics = self._build_mesh(plan, mesh, snapshot_path)
+            else:
+                index, metrics = self._build_local(plan, snapshot_path, pool=mode == "pool", attach=attach)
             wall_build = time.perf_counter() - t1
             for m in metrics:
                 _record_segment_obs(m)
             sp.set(wall_build_s=wall_build)
             sp.add_cost(sum(m.get("n_dists", 0.0) for m in metrics))
         return ShardedBuildResult(
-            index=index, plan=plan, mode="pool" if pool else "inline",
+            index=index, plan=plan, mode=mode,
             snapshot_path=None if snapshot_path is None else os.path.abspath(snapshot_path),
             segments=metrics, wall_assign_s=wall_assign, wall_build_s=wall_build,
             n_workers=n_workers,
         )
 
     # ---- internals ------------------------------------------------------
+
+    def _resolve_mode(self):
+        mesh = self.mesh if self.mesh is not None else dctx.get_current_mesh()
+        if dctx.device_count(mesh) > 1:
+            return "mesh", mesh
+        if self.workers is not None and self.workers > 1:
+            return "pool", None
+        return "inline", None
+
+    def _n_workers(self, mode: str, mesh) -> int:
+        if mode == "mesh":
+            return dctx.device_count(mesh)
+        if mode == "pool":
+            return int(self.workers)
+        return 1
+
+    def _assign_on_mesh(self, source, mesh) -> ShardPlan:
+        """The mesh's first rank assigns (``l2_batch`` routing on ``device``)
+        and hands its spill directory to the others, which load the plan
+        (a temporary ``workdir`` is the first rank's for every rank)."""
+        return ShardPlan.load(_from_first_rank(mesh, lambda: self.assign(source).spill_dir))
 
     def _task(self, plan: ShardPlan, s: int, root: str | None, keep_index: bool) -> dict:
         from repro_torch.serve.snapshot import segment_dir  # lazy: avoids a cycle
@@ -640,3 +669,92 @@ class ShardedBuilder:
         snap.publish_snapshot(root_tmp, snapshot_path)
         index = snap.load_index(snapshot_path, device=self.device) if attach else None
         return index, metrics
+
+    def _build_mesh(self, plan: ShardPlan, mesh, snapshot_path: str | None):
+        """Stacked build across the mesh (the reference's ``_build_mesh``):
+        every rank runs the ``graph.segmented`` deployment program on the
+        whole plan. Needs uniform segment sizes (``balanced=True`` with S |
+        n) and S a multiple of the mesh's devices; the shared coder is
+        fitted once, on the first rank, with the reference's defaults
+        (``d_f = min(D, 32)``, ``m_f = 16``, seed ``cfg.seed``, the first
+        ``sample_size`` stacked rows) and broadcast. With
+        ``snapshot_path`` the first rank saves the collection there."""
+        from repro_torch.graph.segmented import SegmentedAnnIndex, fit_shared_coder, make_segmented_build_fn
+        from repro_torch.launch.mesh import batch_axes
+
+        cfg = self.config
+        sizes = set(int(x) for x in plan.seg_sizes)
+        if len(sizes) != 1:
+            raise ValueError(
+                f"mesh mode needs uniform segment sizes, got {plan.seg_sizes}"
+                " (use balanced=True with n divisible by n_segments)"
+            )
+        n_s = sizes.pop()
+        s_total = plan.n_segments
+        n_dev = dctx.device_count(mesh)
+        if s_total % n_dev:
+            raise ValueError(f"{s_total} segments do not tile {n_dev} mesh devices")
+        params = cfg.params if cfg.params is not None else BuildParams()
+        dev = mesh.device
+        t0 = time.perf_counter()
+        stacked = np.empty((s_total, n_s, plan.d), np.float32)
+        global_of = []
+        for s in range(s_total):
+            vecs, gids = plan.load_segment(s)
+            stacked[s] = vecs
+            global_of.append(gids)
+        kw = dict(cfg.backend_kwargs or {})
+        kw.setdefault("d_f", min(plan.d, 32))
+        kw.setdefault("m_f", 16)
+        sample = stacked.reshape(-1, plan.d)[: cfg.sample_size]
+        coder = fl.FlashCoder(*(t.to(dev) for t in _from_first_rank(
+            mesh, lambda: [t.cpu() for t in fit_shared_coder(cfg.seed, sample, device=dev, **kw)])))
+        levels = np.stack([
+            sample_levels(cfg.seed + s, n_s, r_upper=params.r_upper, max_layers=params.max_layers)
+            for s in range(s_total)
+        ])
+        entries = np.stack([prefix_entries(levels[s], params.batch) for s in range(s_total)])
+        build_fn = make_segmented_build_fn(mesh, params=params, seg_axes=batch_axes(mesh))
+        stacked_t = torch.from_numpy(stacked)
+        built = build_fn(stacked_t, coder, levels, entries)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        segments = [
+            AnnIndex.from_graph(built.segment(s), stacked_t[s], algo="hnsw", params=params, backend_kind="flash",
+                                seed=cfg.seed + s, strategy="incremental", device=dev)
+            for s in range(s_total)
+        ]
+        index = SegmentedAnnIndex.from_parts(segments, plan.centroids, global_of, device=dev)
+        if snapshot_path is not None:
+            if mesh.index == 0:
+                from repro_torch.serve.snapshot import save_index  # lazy: avoids a cycle
+
+                save_index(snapshot_path, index)
+            mesh.barrier()  # published before any rank returns
+        metrics = [
+            {
+                "seg": s, "n_vectors": n_s, "pid": os.getpid(),
+                "wall_s": wall / s_total, "n_dists": 0.0, "phases": None,
+                "max_rss_mb": None, "snapshot": None,
+            }
+            for s in range(s_total)
+        ]
+        return index, metrics
+
+
+def _from_first_rank(mesh, fn):
+    """``fn()`` run on the mesh's first rank, its result handed to every rank
+    (pickled, through the host). An exception there raises on every rank,
+    so none waits for a result that will not come."""
+    if mesh.index == 0:
+        try:
+            out = fn()
+        except Exception as exc:
+            mesh.broadcast_object(("error", f"{type(exc).__name__}: {exc}"))
+            raise
+        mesh.broadcast_object(("ok", out))
+        return out
+    status, out = mesh.broadcast_object(None)
+    if status == "error":
+        raise RuntimeError(f"the mesh's first rank failed: {out}")
+    return out

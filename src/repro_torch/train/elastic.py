@@ -9,17 +9,19 @@ executes: synchronous steps with a deadline, a host that misses enough of
 them is declared failed and the job restarts from the last checkpoint on
 the survivors, data shards reassigned by rank.
 
-A mesh is described by its axis sizes, a mapping of axis name → size
-(what ``mesh.shape`` is in JAX). Placing a tree on a mesh waits for the
-port's mesh mode.
+A mesh's axis sizes are a mapping of axis name → size (``mesh.shape``,
+as in JAX); ``reshard_for_mesh`` places a tree on a ``launch.mesh.Mesh``
+of ranks, each rank taking its own shard.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Mapping
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -37,11 +39,36 @@ class ElasticPolicy:
 
 
 def reshard_for_mesh(tree, specs, mesh):
-    """Place a host-resident checkpoint tree onto a device mesh: not ported
-    yet, it needs the mesh mode (ROADMAP queue 1, item 7)."""
-    raise NotImplementedError(
-        "reshard_for_mesh needs the port's mesh mode, which is not ported yet (ROADMAP queue 1, item 7)"
-    )
+    """Place a host-resident checkpoint tree on ``mesh`` per ``specs``: each
+    rank gets, on its device, the shard of every leaf that
+    ``NamedSharding(mesh, spec)`` gives the device at its coordinates.
+
+    ``specs`` has ``tree``'s dict structure; a leaf's spec holds, per array
+    dim, None, an axis name or a tuple of names (the first major), as a
+    ``PartitionSpec`` does, and may be shorter than the array's rank. A spec
+    whose axes do not divide their dim raises ``ValueError``. Works for any
+    mesh whose axis sizes divide the named dims: the elastic restart path
+    (a checkpoint of one topology loaded on another)."""
+
+    def put(x, spec):
+        x = torch.as_tensor(x)
+        spec = tuple(spec)
+        if not validate_divisibility(tuple(x.shape), spec, mesh.shape):
+            raise ValueError(f"spec {spec} does not divide shape {tuple(x.shape)} over the mesh's {mesh.shape}")
+        for dim, names in enumerate(spec):
+            if names is None:
+                continue
+            names = names if isinstance(names, tuple) else (names,)
+            size = x.shape[dim] // math.prod(mesh.shape[n] for n in names)
+            x = x.narrow(dim, mesh.axis_index(names) * size, size)
+        return x.contiguous().to(mesh.device)
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(t[k], s[k]) for k in t}
+        return put(t, s)
+
+    return walk(tree, specs)
 
 
 def reassign_data_shards(n_shards: int, healthy_ranks: list[int]) -> dict[int, list[int]]:

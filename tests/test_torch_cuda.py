@@ -29,7 +29,8 @@ train step at each reduced config (the tolerances are in the tests).
 ``l2_batch`` at the flash-ann width (D = 768) holds the same tolerance; the
 flash-ann segment build (``graph.segmented.build_segment``) equals the
 CPU's where the query tables agree; ``launch/steps``'s ``serve_bulk`` gives
-the CPU's top-100 ids except at near ties.
+the CPU's top-100 ids except at near ties. The segment layer's mesh
+programs on two ranks sharing the card equal the single-process programs.
 """
 
 from __future__ import annotations
@@ -869,6 +870,44 @@ def test_cuda_build_segment_equals_the_cpu(cuda_device):
         assert card.entry == cpu.entry
     else:
         assert float((card.adj0.cpu() == cpu.adj0).all(1).double().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_programs_on_two_ranks_equal_one_process(cuda_device, tmp_path):
+    """``graph.segmented``'s mesh programs on two ranks sharing the card
+    (``run_ranks``, ``gloo``) against the single-process programs on the
+    card, from one coder and plan at the reference test's sizes (2 x 300 x
+    32): every stacked tensor equal on both ranks, the search's ids and
+    dists equal."""
+    import _mesh_ranks as mr
+    from repro_torch.graph import segmented as seg
+    from repro_torch.graph.backends import FlashBackend
+    from repro_torch.graph.engine import BuildParams, prefix_entries, sample_levels
+    from repro_torch.launch.mesh import run_ranks
+
+    rng = np.random.default_rng(0)
+    data = rng.normal(size=(mr.S * mr.NS, mr.D)).astype(np.float32)
+    queries = rng.normal(size=(mr.Q, mr.D)).astype(np.float32)
+    params = BuildParams(**mr.PARAMS)
+    levels = np.stack([sample_levels(s, mr.NS, r_upper=params.r_upper, max_layers=params.max_layers)
+                       for s in range(mr.S)])
+    entries = np.stack([prefix_entries(levels[s], params.batch) for s in range(mr.S)])
+    segs = torch.from_numpy(data.reshape(mr.S, mr.NS, mr.D)).to(cuda_device)
+    coder = seg.fit_shared_coder(0, data, device=cuda_device, **mr.CODER_KW)
+    built = seg.build_segments_vmapped(segs, coder, levels, entries, params=params)
+    ids, dists = seg.search_segments_local(built, torch.from_numpy(queries).to(cuda_device), np.full(mr.S, mr.NS),
+                                           k=mr.K, ef_search=mr.EF, seg_vectors=segs)
+    state = FlashBackend(coder, built.index.backend.codes[0]).state_dict()
+    npz = str(tmp_path / "inputs.npz")
+    np.savez(npz, data=data, queries=queries, plan_levels=levels, plan_entries=entries,
+             offsets=np.array([0, mr.NS], np.int32), **{f"coder_state.{k}": v for k, v in state.items()})
+    want = mr.graph_arrays(built.index)
+    for r, out in enumerate(run_ranks(mr.segment_programs, 2, npz, device="cuda", timeout=300)):
+        assert out["device"].startswith("cuda") and out["coords"] == {"data": r}
+        for f, v in want.items():
+            np.testing.assert_array_equal(out["build"][f], v, err_msg=f"rank {r}: {f}")
+        np.testing.assert_array_equal(out["ids"], ids.cpu().numpy())
+        np.testing.assert_array_equal(out["dists"], dists.cpu().numpy())
 
 
 @pytest.mark.cuda

@@ -183,13 +183,6 @@ def test_search_segments_local_matches_reference(sets, built, rerank):
         assert _recall(tg.numpy(), gt) > 0.5
 
 
-def test_mesh_programs_raise_naming_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tseg.make_segmented_build_fn(None, params=BuildParams(**PARAMS))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tseg.make_segmented_search_fn(None, k=K, ef_search=EF)
-
-
 # ---- the coder fit ----------------------------------------------------------
 
 

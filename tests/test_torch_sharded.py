@@ -16,8 +16,9 @@
   gives equal global ids, locator and search ids.
 * The port's own streaming build reaches a recall@10 within 0.03 of the
   reference's.
-* The mode not ported yet (the mesh) raises ``NotImplementedError``; the
-  pool and ``snapshot_path=`` are held in ``tests/test_torch_snapshot.py``.
+* The pool and ``snapshot_path=`` are held in
+  ``tests/test_torch_snapshot.py``, the mesh mode in
+  ``tests/test_torch_mesh.py``.
 * The launch counters stay exact under ``fanout_map``'s eight threads.
 """
 
@@ -269,16 +270,6 @@ def test_builder_reports_assignment_and_segment_metrics(data, tmp_path):
     assert [m["seg"] for m in res.segments] == list(range(S))
     assert sum(m["n_vectors"] for m in res.segments) == N
     assert all(m["wall_s"] > 0 and m["n_dists"] > 0 and "bulk" in m["phases"] for m in res.segments)
-
-
-@pytest.mark.parametrize("how", ["mesh"])
-def test_unported_modes_raise(data, tmp_path, how):
-    cfg = ShardConfig(n_segments=S, chunk_size=256, params=BuildParams(**PARAMS),
-                      backend_kwargs=FLASH_KW, sample_size=512)
-    builder = ShardedBuilder(cfg, workdir=str(tmp_path), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        builder.build(data)
-    assert not os.path.exists(tmp_path / "spill")  # nothing ran inline instead
 
 
 def test_one_shot_iterator_rejected(data, tmp_path):

@@ -39,7 +39,9 @@ heads, S 24).
 * Elastic and pipeline as the reference's ``tests/test_train.py``:
   reassignment, divisibility over a mesh's axis sizes, data replayed on
   restart, prefetch order, microbatch reshape, deterministic batches; and
-  ``reshard_for_mesh`` raises ``NotImplementedError`` (the mesh mode).
+  ``reshard_for_mesh`` on a 1-wide mesh keeps the leaves whole and raises
+  ``ValueError`` for a spec that does not divide (the ranks' shards are in
+  ``tests/test_torch_mesh.py``).
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ from repro.train import train_loop as jtl
 from repro_torch import utils as tu
 from repro_torch.configs.registry import get_arch
 from repro_torch.data.pipeline import microbatch_reshape, prefetch, sharded_batches
+from repro_torch.launch.mesh import Mesh, make_host_mesh
 from repro_torch.models.recsys import bert4rec as tb
 from repro_torch.train import checkpoint as tck
 from repro_torch.train import compression as tcomp
@@ -420,8 +423,13 @@ def test_divisibility_guard_and_policy():
     pol = elastic.ElasticPolicy()
     assert pol.should_restart(2) and not pol.should_restart(1)
     assert pol.can_continue(3, 4) and not pol.can_continue(2, 4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        elastic.reshard_for_mesh({"a": torch.zeros(2)}, {"a": ("model",)}, {"model": 1})
+    one = make_host_mesh(device="cpu")  # no process group: a 1 x 1 mesh keeps every leaf whole
+    tree = {"a": torch.arange(6.0).reshape(2, 3), "b": {"c": np.arange(4)}}
+    placed = elastic.reshard_for_mesh(tree, {"a": ("model",), "b": {"c": ()}}, one)
+    assert torch.equal(placed["a"], tree["a"]) and torch.equal(placed["b"]["c"], torch.arange(4))
+    with pytest.raises(ValueError, match="does not divide"):
+        elastic.reshard_for_mesh(tree, {"a": (None, "data"), "b": {"c": ()}},
+                                 Mesh({"data": 2}, [0, 1], "cpu"))
 
 
 def test_restart_replays_same_data():

@@ -3,9 +3,10 @@ packages: a witness for how many rows the bulk pass leaves unreachable.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/witness_flash_ann_repair.py [--n 5000 10000]
 
-For each ``--n``, the rows are the first n of ``chip_smoke.py``'s flash-ann
-draw (``vector_dataset(0, n=2·100,000 + 1,024, d=768, n_clusters=64)``,
-its first segment), the coder the registry's flash-ann one (d_f = 256,
+For each ``--n``, the rows are the first n of the flash-ann draw at the
+registry's full segment size (``vector_dataset(0, n=2·100,000 + 1,024,
+d=768, n_clusters=64)``, its first segment; ``chip_smoke.py`` now draws
+2·50,000 + 1,024), the coder the registry's flash-ann one (d_f = 256,
 M = 16, 4-bit, H = 8), fitted by the reference over those rows and carried
 to the port with ``FlashBlockedBackend.from_state``, and the parameters
 the smoke's (``launch/dryrun.py:142``: r_upper 16, r_base 32, ef 128,
