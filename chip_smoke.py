@@ -53,7 +53,7 @@ non-zero and no result line is printed):
             share and the top five kernels by device time.
 5. check    on small inputs the card's path equals the plain CPU path: beam
             search on the built index with the same query tables, a whole
-            10k-vector build from the same coder, and an 8k-row
+            5k-vector build from the same coder, and an 8k-row
             ``SegmentedAnnIndex`` (4 segments) built on the card, restored
             on the CPU, then grown, pruned, compacted and searched on both;
             and HNSW, Vamana and NSG, bulk and incremental, over fp32 and
@@ -62,7 +62,7 @@ non-zero and no result line is printed):
             [−8, 8] at D = 32 (every distance an exact float32 integer):
             graphs, distances, entries and n_dists equal on card and CPU;
             and flat Vamana and NSG over ``flash_blocked`` at r_base 24,
-            W 4 (bulk over 10,000 rows, incremental over 2,000, the NSG
+            W 4 (bulk over 5,000 rows, incremental over 1,000, the NSG
             from one k-NN graph) from one coder fitted on the card: graphs,
             n_dists and a search at ef 128 equal where the query tables
             agree.
@@ -76,14 +76,14 @@ non-zero and no result line is printed):
             insert batches (busy share, top five kernels, host and card ms
             per batch); beside it the bulk build of the same rows (counted
             apart, as ``incremental_bulk``); and a
-            1,000-row incremental build with an M = 8 coder (the byte-wise
+            500-row incremental build with an M = 8 coder (the byte-wise
             mirror layout) on the card and on the CPU from one coder's
             state, bit-equal where the query tables agree.
 7. snapshot the main index saved with ``serve.snapshot.save_index`` and
             loaded back on the card (save and load seconds, bytes): the
             1,000 queries at ef = 64, W = 1 must return the live ids and
             distances. Then ``ShardedBuilder(workers=2, snapshot_path=…,
-            attach=True)`` over the first 8,192 rows in 8 segments (a spawn
+            attach=True)`` over the first 4,096 rows in 8 segments (a spawn
             pool sharing the card) must attach segments bit-equal to the
             inline build of the same plan; both walls and
             ``model_parallel_wall`` of the inline walls.
@@ -134,7 +134,7 @@ non-zero and no result line is printed):
             ``flash_blocked`` build launches ``flash_round`` and
             ``flash_beam``, every search ``flash_beam``.
 8. sharded  the scale-out path: ``ShardedBuilder`` streams the first
-            ``N_SCALE`` − 2,000 rows (of ``--n``'s at most) into 64 balanced
+            ``N_SCALE`` − ``ADD_ROWS`` rows (of ``--n``'s at most) into 64 balanced
             segments (inline,
             each a bulk Flash-HNSW build): assignment
             seconds (bootstrap, streaming pass), segment sizes, the sum and
@@ -147,7 +147,7 @@ non-zero and no result line is printed):
             segments): QPS, recall@10 against phase 4's ground truth,
             n_scan, n_rerank, ``flash_beam`` launches (one per segment
             and search); the fan-out threads must return the same ids.
-10. maintenance  ``add`` the last 2,000 rows (routed by ``nearest_centroid``),
+10. maintenance  ``add`` the last ``ADD_ROWS`` rows (routed by ``nearest_centroid``),
             search, ``delete`` 10,000 ids, search (ef = 256, W = 4): no
             deleted id may come back; recall
             against an exact k-NN of the live rows.
@@ -203,7 +203,7 @@ non-zero and no result line is printed):
             (after a warm-up prefill of 512 tokens) and tokens/s, decode ms
             per step (median) and tokens/s, model FLOPs over seconds against
             the dense bf16 peak (the reference's formulas), peak memory, a
-            profiler window over 4 decode steps and one over the prefill at
+            profiler window over 2 decode steps and one over the prefill at
             full length through one layer of each kind. (a) Decoding the last prompt token at S − 1 against the
             prefill's caches gives the prefill's argmax on every row and
             logits within ``LM_DECODE_ATOL`` (the MoE config at a 64-token
@@ -252,7 +252,7 @@ non-zero and no result line is printed):
             which ``egnn_reference_geometry`` records. Per cell: s per
             step (median of steps 3–6), edges/s, ``gnn_train_flops`` over s against the float32 peak,
             peak memory, the losses, launches per step, busy share and top
-            kernels over 2 more steps. (a) The loss falls and every loss
+            kernels over 1 more step. (a) The loss falls and every loss
             and grad_norm is finite. (b) One float32 ``gnn_train_step``
             (``AdamWConfig()``) card against CPU on the four reduced configs
             at ``molecule``, GatedGCN at full width and Equiformer at full
@@ -268,17 +268,17 @@ non-zero and no result line is printed):
             phase's.
 16. flash_ann  the paper's own workload, the registry's ``flash-ann``
             cells (D 768; coder d_f 256, M 16, 4-bit, H 8; 2 segments of
-            50,000 rows, the registry's 100,000 cut; 1,024 queries, k 10) on
-            ``vector_dataset(seed=0, n=101,024, d=768)``, ``BuildParams(r_upper=16, r_base=32, ef=128,
+            20,000 rows, the registry's 100,000 cut; 1,024 queries, k 10) on
+            ``vector_dataset(seed=0, n=41,024, d=768)``, ``BuildParams(r_upper=16, r_base=32, ef=128,
             batch=64, max_layers=3)``. (a) ``flash_ann_reference``: the
             reference's single-device programs (``fit_shared_coder``,
             ``build_segments_vmapped`` over the unblocked Flash backend,
             ``search_segments_local`` with the segments' vectors at ef ∈ {96,
             256}) over the first ``--ann-inc`` rows of each segment, and the
-            card against the CPU on a 1,024-row ``build_segment``. (b)
-            ``SegmentedAnnIndex.build`` over both 50,000-row segments (bulk
+            card against the CPU on a ``ANN_CHECK_ROWS``-row ``build_segment``. (b)
+            ``SegmentedAnnIndex.build`` over both 20,000-row segments (bulk
             ``flash_blocked``), the fan-out search at ef ∈ {96, 256}, W ∈ {1,
-            4}, exact rerank, against ``exact_knn`` over the 100,000 rows
+            4}, exact rerank, against ``exact_knn`` over the 40,000 rows
             (cross-checked against a plain loop); recall at ef 256 at least
             ½ a scan of every segment's codes keeping 256; ``flash_round``,
             ``flash_beam`` and ``l2_batch`` must launch.
@@ -292,7 +292,7 @@ non-zero and no result line is printed):
             rendezvous, build and gather s and bytes (and the bytes staged
             through the host), QPS beside phase 16's one-card QPS. (b)
             ``ShardedBuilder(mesh=make_segment_mesh(2))`` over the main
-            path's first 2 x 2,048 rows: mode "mesh", each rank's segment
+            path's first 2 x 1,024 rows: mode "mesh", each rank's segment
             equal to ``build_segments_vmapped`` on the same plan and coder,
             recall@10 at ef 96 against ``exact_knn``, assignment and build
             s; ``l2_batch`` must launch (the ranks' counts summed).
@@ -303,9 +303,25 @@ non-zero and no result line is printed):
             ``score_all`` top-100 except at near ties) and ``retrieval_cand``
             (B 1 over 1,000,000 Flash-coded candidates, one ``flash_scan`` a
             call): ms or s, model FLOPs/s over the float32 peak.
+17b. mesh_steps  the recsys and GNN step bundles across two ranks sharing
+            the card over ``gloo``, on a (data 1, model 2) mesh
+            (``build_bundle(..., mesh=...)``: BERT4Rec tensor-parallel, the
+            GNN step edge-sharded): BERT4Rec at its full config trained 3
+            steps of 64 sessions (8 microbatches), ``serve_p99`` at B 512,
+            ``serve_bulk`` over 8,192 sessions (cut from 262,144),
+            ``retrieval_cand`` at B 1 over 1,000,000 rows (one
+            ``flash_scan`` a rank over its 500,000 code rows); GatedGCN at
+            full width and depth on ``full_graph_sm``, Equiformer-v2 at full
+            width and depth 4 (of 12) on ``molecule``, 3 steps each. Each
+            cell is held against the same cell in one process on the card
+            (the first rank runs it): ids equal but at near ties, scores
+            within 2e-5, BERT4Rec's state as the training phase's check, the
+            GNNs' as phase 15's; one-process and per-rank seconds, the
+            ranks' start-up, the bytes ``COMM`` counted, ``flash_scan``'s
+            launches and ms a rank, beside the card's name and power limit.
 18. examples  ``examples/torch_quickstart.py``,
-            ``torch_distributed_build.py`` (2,000 rows in 2 segments on 2
-            ranks, ``--ranks 2``) and ``torch_retrieval_serving.py``, each
+            ``torch_distributed_build.py`` (1,000 rows in 2 segments on 2
+            ranks, ``--seg-size 250 --ranks 2``) and ``torch_retrieval_serving.py``, each
             ``main()`` on the card.
 
 Launch counts are zeroed just before each path (the main path: phases 3–4;
@@ -316,7 +332,9 @@ baselines and generality paths: phases 7b and 7c; the scale-out path:
 phases 8–10; the retrieval path: phase 11; the training path: phase 12
 (b)–(d); the GNN example's path: phase 15 (c); the flash-ann paths:
 phase 16 (a) and (b), each; the mesh path: phase 16b, in each rank,
-then summed; the recsys cells: phase 17; the examples: phase 18, the
+then summed; the recsys cells: phase 17; the step bundles across ranks:
+phase 17b, in each rank over its cells across the ranks, then summed; the
+examples: phase 18, the
 distributed example's ranks' counts added) and read just after it;
 the script fails if a kernel of a path never launched there. The LM
 serving and training paths (phases 13 and 14) and the GNN models (phase
@@ -346,15 +364,15 @@ import numpy as np
 
 QUERIES = 1000  # held-out search queries, the search batch
 SEGMENTS = 64  # the scale-out path's segments (benchmarks/bench_scalability.py:60-61)
-N_SCALE = 50_000  # rows of the scale-out path (PERF.md §4 gives the cut)
-ADD_ROWS = 2000  # rows the scale-out path adds through routed growth
+N_SCALE = 34_000  # rows of the scale-out path (PERF.md §4 gives the cut)
+ADD_ROWS = 1000  # rows the scale-out path adds through routed growth (2,000 cut, PERF.md §4)
 REQUESTS = 64  # the retrieval path's request batch (examples/retrieval_serving.py:49)
 GRAPH_EF = (96, 512)  # the example's ef_search (examples/retrieval_serving.py:72), and a wider beam
 DELETE_ROWS = 10000  # ids the scale-out path deletes
-N_INC = 2000  # rows of the incremental build (phase 6; PERF.md §4 gives the cut)
-INC_CHECK_ROWS = 1000  # rows of phase 6's M = 8 build, card against CPU (PERF.md §4 gives the cut)
+N_INC = 1000  # rows of the incremental build (phase 6; PERF.md §4 gives the cut)
+INC_CHECK_ROWS = 500  # rows of phase 6's M = 8 build, card against CPU (PERF.md §4 gives the cut)
 N_BASE = 25_000  # rows of the baselines and generality phases (7b, 7c; PERF.md §4 gives the cut)
-POOL_ROWS = 8192  # rows of the snapshot phase's pool and inline builds (PERF.md §4 gives the cut)
+POOL_ROWS = 4096  # rows of the snapshot phase's pool and inline builds (PERF.md §4 gives the cut)
 PROFILED_BATCHES = 5  # insert batches of the incremental path's profiler window (PERF.md §4)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 CUDA_CORE_OPS_PER_S = 67e12  # float32 outside the tensor cores; int32 adds counted at it
@@ -1076,7 +1094,7 @@ def small_input_checks(dev, index, queries, knn) -> dict:
     out["beam_card_equals_cpu"] = True
 
     # (b) a whole small build from one coder: card kernels vs CPU plain path
-    data = index.data[:10000]
+    data = index.data[:5000]  # 20,000, then 10,000, then 5,000 rows (PERF.md §4)
     be = bk.make_backend("flash_blocked", data, seed=0, r_for_blocked=16, device=dev,
                          d_f=64, m_f=16, l_f=4, h=8, kmeans_iters=8)
     state = be.state_dict()
@@ -1152,7 +1170,7 @@ def incremental_path(dev, base_np, queries, n_inc: int, t_start: float) -> dict:
     insert batches (``add`` to a copy: the same program) for the card's
     busy share and the time per insert batch on the host and on the card.
     Beside it the bulk build of the same rows, and the card against the CPU
-    path on a 1,000-row incremental build with an M = 8 coder (4 bytes per
+    path on a ``INC_CHECK_ROWS``-row incremental build with an M = 8 coder (4 bytes per
     packed row: the byte-wise layout). Returns the path's launches (ground
     truth, the incremental build, its searches), the bulk build's beside it
     (build and searches), counted apart, and ``l2_batch``'s ground-truth
@@ -1235,7 +1253,7 @@ def incremental_path(dev, base_np, queries, n_inc: int, t_start: float) -> dict:
     sync(dev)
     bulk_launches = dict(ops.launches)
 
-    # the card against the CPU path: a 1,000-row incremental build from one
+    # the card against the CPU path: an INC_CHECK_ROWS-row incremental build from one
     # M = 8 coder's state (not counted: both counts were read above)
     d4 = data[:INC_CHECK_ROWS]
     be = bk.make_backend("flash_blocked", d4, seed=0, r_for_blocked=params.r_base, device=dev,
@@ -2049,7 +2067,8 @@ def noise_count(got, want, *, lr: float, steps: int, what: str) -> int:
     must lie within 2·steps·lr of it (AdamW moves a parameter whose
     gradient is float noise by ±lr a step, whichever sign the noise has).
     Returns the count, which the caller holds to 1 in 10,000."""
-    got, want = got.double().cpu(), want.double().cpu()
+    got = got.double()
+    want = want.double().to(got.device)
     diff = (got - want).abs()
     if not bool((diff <= 2 * steps * lr + 1e-4).all()):
         raise AssertionError(f"{what}: {float(diff.max())} apart, beyond 2·steps·lr")
@@ -2301,7 +2320,7 @@ LM_CELLS = (
     ("deepseek-v3-671b", 4, 2, 4096, 32, 4224),
     ("qwen1.5-0.5b", None, 2, 4096, 32, 4224),
 )
-LM_WINDOW_STEPS = 4  # decode steps under the profiler
+LM_WINDOW_STEPS = 2  # decode steps under the profiler (4 cut, PERF.md §4)
 LM_MOE_CHECK_PROMPT = 64  # the MoE config's decode-equals-prefill prompt
 LM_WARMUP_PROMPT = 512  # the warm-up prefill's prompt: one query block of each config
 LM_ARCHS = ("qwen2-72b", "qwen1.5-0.5b", "llama3.2-3b", "deepseek-v3-671b", "moonshot-v1-16b-a3b")
@@ -2722,7 +2741,7 @@ GNN_SEED = 0
 GNN_ARCHS = ("gatedgcn", "egnn", "nequip", "equiformer-v2")
 GNN_CELLS = ("full_graph_sm", "molecule", "minibatch_lg")
 GNN_STEPS = 6  # steps per cell, 8 cut to keep the smoke inside its limit (PERF.md §4)
-GNN_PROFILED = 2  # steps under the profiler, after the timed ones
+GNN_PROFILED = 1  # steps under the profiler, after the timed ones (2 cut, PERF.md §4)
 #: minibatch_lg's seeds per step where 1,024 does not fit one card (PERF.md §4)
 GNN_SEEDS = {"equiformer-v2": 128}
 GNN_FANOUTS = [15, 10]  # minibatch_lg's fanout (src/repro/configs/registry.py:43-46)
@@ -2932,31 +2951,15 @@ def gnn_train_card_vs_cpu(dev, arch: str, *, full: bool = False, depth=None) -> 
         b = {"graph": batch["graph"].to(d), "labels": batch["labels"].to(d)}
         tree, metrics = step(init_train_state(p, st.TrainConfig()).tree(), b)
         opt = tree["opt_state"]
-        return {"metrics": metrics, **{k: dict(tree_paths(t)) for k, t in (
+        return {"metrics": {k: float(v) for k, v in metrics.items()}, **{k: dict(tree_paths(t)) for k, t in (
             ("params", tree["params"]), ("mu", opt.mu), ("nu", opt.nu))}}
 
     def ratios(got: dict, want: dict) -> dict:
-        """Each group's largest difference over its bound."""
-        lr = float(want["metrics"]["lr"])
-
-        def group(key: str, atol: float) -> float:
-            largest = max(float(y.abs().max()) for y in want[key].values())
-            worst = 0.0
-            for path, y in want[key].items():
-                scale = largest if path in GNN_NOISE_LEAVES else float(y.abs().max())
-                diff = float((got[key][path].to(torch.float64) - y.to(torch.float64)).abs().max())
-                worst = max(worst, diff / (GNN_TRAIN_CARD_RTOL * scale + atol or 1e-30))
-            return worst
-
-        out = {k: float((got["metrics"][k].double() - want["metrics"][k].double()).abs())
-               / (GNN_TRAIN_CARD_RTOL * float(want["metrics"][k].abs())) for k in ("loss", "grad_norm")}
-        out.update({k: group(k, 2 * lr if k == "params" else 0.0) for k in ("params", "mu", "nu")})
-        return out
+        return gnn_state_ratios(got, want, steps=1)
 
     t0 = time.perf_counter()
     want = run(torch.device("cpu"))
     cpu_s = time.perf_counter() - t0
-    want = {k: tree_map(lambda t: t.to(dev), v) for k, v in want.items()}  # compared on the card
     sound = ratios(run(dev), want)
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -2969,7 +2972,7 @@ def gnn_train_card_vs_cpu(dev, arch: str, *, full: bool = False, depth=None) -> 
         raise AssertionError(f"gnn train step card vs CPU ({label}): difference over bound {sound}")
     return {"config": dataclasses.asdict(cfg), "difference_over_bound": sound, "rtol": GNN_TRAIN_CARD_RTOL,
             "tf32_control_difference_over_bound": control,
-            "tf32_control_exceeds_bound": max(control.values()) > 1.0, "loss": float(want["metrics"]["loss"]),
+            "tf32_control_exceeds_bound": max(control.values()) > 1.0, "loss": want["metrics"]["loss"],
             "cpu_step_s": cpu_s, "s": time.perf_counter() - t_check}
 
 
@@ -3232,8 +3235,8 @@ def exact_builds(device: str, src: str) -> dict:
 
 #: the flat Flash builds phase 5 holds card against CPU: (algo, strategy,
 #: rows, algorithm options), at the ``generality`` phase's parameters
-FLAT_FLASH_CASES = (("vamana", "bulk", 10000, {}), ("nsg", "bulk", 10000, dict(knn_k=24)),
-                    ("vamana", "incremental", 2000, {}), ("nsg", "incremental", 2000, dict(knn_k=24)))
+FLAT_FLASH_CASES = (("vamana", "bulk", 5000, {}), ("nsg", "bulk", 5000, dict(knn_k=24)),
+                    ("vamana", "incremental", 1000, {}), ("nsg", "incremental", 1000, dict(knn_k=24)))
 FLAT_PARAMS = dict(r_upper=8, r_base=24, ef=64, batch=32, max_layers=3, width=4, alpha=1.2)
 
 
@@ -3540,9 +3543,9 @@ def generality_path(dev, base_np, queries, n_rows: int, t_start: float) -> dict:
 ANN_SEGMENTS = 2  # the flash-ann cells' segments on one card
 ANN_PARAMS = dict(r_upper=16, r_base=32, ef=128, batch=64, max_layers=3)  # src/repro/launch/dryrun.py:142
 ANN_EF = (96, 256)  # examples/distributed_build.py:60, and the wider beam of every Flash path
-ANN_ROWS = 50_000  # rows a segment of part (b): the registry's 100,000 cut (PERF.md §4)
-ANN_INC = 1024  # rows a segment of part (a)'s incremental build (PERF.md §4 gives the cut from 100,000)
-ANN_CHECK_ROWS = 1024  # part (a)'s card-against-CPU prefix
+ANN_ROWS = 20_000  # rows a segment of part (b): the registry's 100,000 cut (PERF.md §4)
+ANN_INC = 512  # rows a segment of part (a)'s incremental build (PERF.md §4 gives the cut from 100,000)
+ANN_CHECK_ROWS = 512  # part (a)'s card-against-CPU prefix
 
 
 def load_example(name: str):
@@ -3572,7 +3575,7 @@ def check_l2_batch_d768(dev, g) -> dict:
     from repro_torch.kernels import ops, ref
     from repro_torch.utils import topk_first
 
-    nq, nc, d = 1024, ANN_SEGMENTS * ANN_ROWS, 768
+    nq, nc, d = 1024, 100_000, 768  # flash_ann's ground-truth tile at 2 x 50,000 rows, fixed across its row cuts
     x = torch.randn((nq, d), generator=g, device=dev)
     y = torch.randn((nc, d), generator=g, device=dev)
     plan = ops._l2_plan(nq, nc, d, x.data_ptr(), y.data_ptr(), ops._sm_count(dev))
@@ -3645,7 +3648,7 @@ def flash_ann_path(dev, ann_inc: int, t_start: float, handover: str) -> tuple[di
     M 16, 4-bit, H 8; ``segment_build``: 100,000 rows a segment, cut to
     ``ANN_ROWS``;
     ``fanout_search``: 1,024 queries, k 10) on ``vector_dataset(seed=0,
-    n=2·50,000 + 1,024, d=768, n_clusters=64)``, one shared coder from
+    n=2·ANN_ROWS + 1,024, d=768, n_clusters=64)``, one shared coder from
     ``fit_shared_coder`` over the rows.
 
     (a) The reference's own single-device programs: ``build_segments_vmapped``
@@ -3654,13 +3657,13 @@ def flash_ann_path(dev, ann_inc: int, t_start: float, handover: str) -> tuple[di
     ``ANN_PARAMS``, then ``search_segments_local`` with the segments'
     vectors at ef ∈ {96, 256}: s per insert batch, n_dists by phase,
     recall@10 against ``exact_knn`` over those rows, QPS. Beside it the card
-    against the CPU on a 1,024-row prefix (``ann_card_vs_cpu``).
+    against the CPU on an ``ANN_CHECK_ROWS``-row prefix (``ann_card_vs_cpu``).
     (b) The cells at full size on the port's main path:
-    ``SegmentedAnnIndex.build`` over the two 50,000-row segments
+    ``SegmentedAnnIndex.build`` over the two ``ANN_ROWS``-row segments
     (``flash_blocked``, bulk, ``ANN_PARAMS``, each segment's own coder at the
     flash-ann settings), then the fan-out search at ef ∈ {96, 256}, W ∈ {1,
     4}, exact rerank: coder fit and build s by phase, n_dists, index bytes,
-    QPS, recall@10 against ``exact_knn`` over the 100,000 rows (``l2_batch``
+    QPS, recall@10 against ``exact_knn`` over the 2·``ANN_ROWS`` rows (``l2_batch``
     at D = 768, cross-checked against a plain loop), a scan of each
     segment's codes keeping 256, the busy share over one search. At ef =
     256 the best recall must reach ½ of the scan's. (a)'s inputs, stacked
@@ -3803,7 +3806,7 @@ def flash_ann_path(dev, ann_inc: int, t_start: float, handover: str) -> tuple[di
 
 
 MESH_RANKS = 2  # the mesh phase's ranks: both on the one card (gloo), or one a card (nccl)
-MESH_ROWS = 2048  # rows a segment of the mesh phase's part (b)
+MESH_ROWS = 1024  # rows a segment of the mesh phase's part (b), cut from 2,048 (PERF.md §4)
 MESH_FIELDS = ("adj0", "adj0_d", "adj_up", "adj_up_d", "levels", "entry", "codes")
 
 
@@ -4066,10 +4069,352 @@ def recsys_cells_path(dev, t_start: float) -> dict:
     return launches
 
 
+MESH_STEPS_RANKS = 2  # the mesh_steps phase's ranks, sharing the one card over gloo: a (data 1, model 2) mesh
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_SESSIONS = 64  # sessions a step: the training phase's cut (PERF.md §4)
+MESH_TRAIN_MICROBATCHES = 8
+MESH_P99_CHECK = 32  # serve_p99 sessions whose logits are held against one process
+MESH_BULK_SESSIONS = 8_192  # serve_bulk's sessions (one block), cut from 262,144 (PERF.md §4)
+MESH_GNN_STEPS = 3
+#: the GNN cells across ranks: (arch, cell, depth; None is the full depth).
+#: Equiformer's 12 layers cut to 4: its node aggregates go through the host
+#: (2.6 GB a step at 12, ~0.5 GB/s over gloo) and the phase's budget is 60 s
+#: (PERF.md §4)
+MESH_GNN_CELLS = (("gatedgcn", "full_graph_sm", None), ("equiformer-v2", "molecule", 4))
+MESH_SCORE_ATOL = 2e-5  # scores and logits against one process (tests/test_torch_launch.py's bound)
+
+
+def ids_near_ties(got_i, got_s, want_i, want_s, what: str) -> dict:
+    """Top-k ids (rows of k) of a run against another's: equal as sets but
+    where the differing ids score within 1e-5 of the other's k-th (a near
+    tie, counted); scores within ``MESH_SCORE_ATOL``."""
+    import torch
+
+    got_i, want_i, got_s, want_s = (t.cpu().reshape(-1, t.shape[-1]) for t in (got_i, want_i, got_s, want_s))
+    differ = (got_i.long().sort(1).values != want_i.long().sort(1).values).any(1)
+    near = 0
+    for r in torch.nonzero(differ)[:, 0].tolist():
+        kth = float(want_s[r, -1])
+        extra = got_s[r][~torch.isin(got_i[r], want_i[r])]
+        near += int(bool(((extra - kth).abs() <= 1e-5 * max(1.0, abs(kth))).all()))
+    err = float((got_s.double() - want_s.double()).abs().max()) if not bool(differ.any()) else None
+    if int(differ.sum()) > near or (err is not None and err > MESH_SCORE_ATOL):
+        raise AssertionError(f"{what}: {int(differ.sum())} rows' ids differ from one process ({near} at near "
+                             f"ties), max |Δscore| {err}")
+    return {"rows": int(got_i.shape[0]), "rows_differ": int(differ.sum()), "near_ties": near, "max_abs_err": err}
+
+
+def gnn_state_ratios(got: dict, want: dict, steps: int) -> dict:
+    """Each group's largest difference over its bound (``GNN_TRAIN_CARD_RTOL``
+    of the tensor's largest magnitude, plus 2·steps·lr for a parameter;
+    ``GNN_NOISE_LEAVES`` of their tree's largest) after ``steps`` steps:
+    trees of (path → tensor) and the last step's metrics as floats."""
+    lr = float(want["metrics"]["lr"])
+    out = {k: abs(got["metrics"][k] - want["metrics"][k]) / (GNN_TRAIN_CARD_RTOL * abs(want["metrics"][k]))
+           for k in ("loss", "grad_norm")}
+    for key, atol in (("params", 2 * steps * lr), ("mu", 0.0), ("nu", 0.0)):
+        largest = max(float(y.abs().max()) for y in want[key].values())
+        worst = 0.0
+        for path, y in want[key].items():
+            scale = largest if path in GNN_NOISE_LEAVES else float(y.abs().max())
+            diff = float((got[key][path].double().cpu() - y.double().cpu()).abs().max())
+            worst = max(worst, diff / (GNN_TRAIN_CARD_RTOL * scale + atol or 1e-30))
+        out[key] = worst
+    return out
+
+
+def mesh_steps_rank(world, handover: str) -> list:
+    """Phase 17b on one rank (module level: ``run_ranks`` pickles it): the
+    cells of ``launch/steps.build_bundle(..., mesh=...)`` on a (data 1,
+    model ``MESH_STEPS_RANKS``) mesh over the ranks, each held against the
+    same cell in one process, which the first rank runs first from the same
+    weights and inputs (every rank draws them from the same seeded card
+    generators; the candidate codes the first rank fits go to the others
+    through ``handover``): BERT4Rec at its full config trained 3 steps of
+    64 sessions (8 microbatches), ``serve_p99`` at B 512, ``serve_bulk``
+    over ``MESH_BULK_SESSIONS`` sessions, ``retrieval_cand`` at B 1 over
+    1,000,000 rows (a d_f 48, M 16 coder; ``flash_scan`` over this rank's
+    500,000 code rows), and ``MESH_GNN_CELLS``, 3 steps each. Outputs are
+    put back together by ``gather_from_mesh`` (``serve_p99``'s vocabulary
+    block is held against its columns). Each cell's seconds a step or
+    call, in one process and across the ranks, the bytes ``COMM`` counted
+    and each section's wall seconds. Launches are counted over the cells
+    across the ranks; then each rank in turn times its ``flash_scan``
+    alone. Returns every rank's readings."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import flash as fl
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import bert4rec as b4r
+    from repro_torch.train.elastic import gather_from_mesh, reshard_for_mesh
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.utils import sync, tree_map, tree_paths, tree_size
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_rank = time.perf_counter()
+    dev = world.device
+    mesh = lm.Mesh({"data": 1, "model": world.size}, range(world.size), dev)
+    me = mesh.index
+    first = me == 0
+    out = {"rank": me, "coords": mesh.coords, "backend": str(torch.distributed.get_backend()), **world.launch}
+    sections: dict = {}
+    one: dict = {}
+    batch_spec = (("data",), None)
+
+    def timed(fn, barrier: bool = True):
+        """fn() to a synchronized end (after a barrier across the ranks):
+        (result, seconds, COMM bytes)."""
+        lm.reset_comm()
+        if barrier:
+            mesh.barrier()
+        sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        return res, time.perf_counter() - t0, dict(lm.COMM)
+
+    def section(name: str, t0: float) -> float:
+        sections[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    # ---- the inputs: every rank draws them from the same seeds ----------------------
+    cfg = get_arch("bert4rec").make_full()
+    params = b4r.params_tree(b4r.Bert4Rec(cfg, torch.Generator(device=dev).manual_seed(RECSYS_SEED), device=dev))
+
+    def sessions(batch: int, step: int):
+        items = recsys_batch(RECSYS_SEED, step, 0, batch=batch, seq=cfg.seq_len, n_items=cfg.n_items,
+                             device=dev)["items"]
+        items[:, -1] = cfg.mask_id
+        return items
+
+    batches = []
+    for step in range(MESH_TRAIN_STEPS):
+        bt = recsys_batch(RECSYS_SEED, 100 + step, 0, batch=MESH_TRAIN_SESSIONS, seq=cfg.seq_len,
+                          n_items=cfg.n_items, device=dev)
+        batches.append((bt["items"], bt["mask_positions"]))
+    p99_items = sessions(next(s for s in get_arch("bert4rec").shapes if s.name == "serve_p99").dims["global_batch"], 1)
+    bulk_items, cand_items = sessions(MESH_BULK_SESSIONS, 2), sessions(1, 3)
+    gnn = {}
+    for arch, cell, depth in MESH_GNN_CELLS:
+        override = {} if depth is None else {"n_layers": depth}
+        shape = next(s for s in get_arch(arch).shapes if s.name == cell)
+        gcfg = steps.gnn_adapt_config(dataclasses.replace(get_arch(arch).make_full(), **override), shape)
+        gen = torch.Generator(device=dev).manual_seed(GNN_SEED)
+        batch = steps.gnn_batch(gcfg, shape, gen, device=dev)
+        gnn[arch] = (cell, override, gcfg.n_layers, batch, steps.gnn_init(gcfg, gen, device=dev))
+    codes_path = os.path.join(handover, "codes.pt")
+    # every bundle, on every rank at once: the first one's meta tensors load
+    # torch's reference ops (seconds in a fresh process)
+    names = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
+    one_b = {name: steps.build_bundle("bert4rec", name, device=dev, microbatches=MESH_TRAIN_MICROBATCHES)
+             for name in names}
+    mesh_b = {name: steps.build_bundle("bert4rec", name, device=dev, mesh=mesh, microbatches=MESH_TRAIN_MICROBATCHES)
+              for name in names}
+    for arch, (cell, override, *_) in gnn.items():
+        one_b[arch] = steps.build_bundle(arch, cell, device=dev, cfg_override=override)
+        mesh_b[arch] = steps.build_bundle(arch, cell, device=dev, mesh=mesh, cfg_override=override)
+    t0 = section("inputs", t_rank)
+
+    # ---- one process, on the first rank: every cell, kept for the checks ------------
+    if first:
+        b = one_b["train_batch"]
+        p, o = tree_map(torch.clone, params), adamw_init(params)
+        rows = []
+        for items, mask in batches:
+            (p, o, m), dt, _ = timed(lambda: b.fn(p, o, items, mask), barrier=False)
+            rows.append({"s": dt, **{k: float(v) for k, v in m.items()}})
+        one["train"] = {"s_per_step": [r["s"] for r in rows], "loss": [r["loss"] for r in rows]}
+        want_train = {"metrics": rows, "params": p, "mu": o.mu, "nu": o.nu}
+        del p, o
+        b = one_b["serve_p99"]
+        want_p99 = b.fn(params, p99_items)[:MESH_P99_CHECK].clone()
+        one["serve_p99"] = {"batch": p99_items.shape[0], "ms": path_ms(lambda: b.fn(params, p99_items))}
+        b = one_b["serve_bulk"]
+        (want_ids, want_scores), dt, _ = timed(lambda: b.fn(params, bulk_items), barrier=False)
+        one["serve_bulk"] = {"sessions": bulk_items.shape[0], "s": dt}
+        b = one_b["retrieval_cand"]
+        n_cand = b.args[2].shape[0]
+        t1 = time.perf_counter()
+        table = params["item_embed"][:n_cand]
+        coder = fl.fit_flash(table, d_f=48, m_f=16, kmeans_iters=10, device=dev)
+        codes = fl.encode(coder, table)
+        adt = fl.query_ctx(coder, b4r.bert4rec_serve(params, cfg, cand_items)).adt_q[0]
+        fit_s = time.perf_counter() - t1
+        want_cand = b.fn(params, cand_items, codes, adt)
+        one["retrieval_cand"] = {"candidates": n_cand, "coder_fit_and_encode_s": fit_s,
+                                 "ms": path_ms(lambda: b.fn(params, cand_items, codes, adt))}
+        torch.save({"codes": codes.cpu(), "adt": adt.cpu()}, codes_path)
+        del table, coder, codes
+        want_gnn = {}
+        for arch, (cell, override, layers, batch, p0) in gnn.items():
+            b = one_b[arch]
+            p, o = tree_map(torch.clone, p0), adamw_init(p0)
+            torch.cuda.reset_peak_memory_stats()
+            step_s = []
+            for _ in range(MESH_GNN_STEPS):
+                (p, o, m), dt, _ = timed(lambda: b.fn(p, o, batch["graph"], batch["labels"]), barrier=False)
+                step_s.append(dt)
+            want_gnn[arch] = {"metrics": {k: float(v) for k, v in m.items()}, "params": dict(tree_paths(p)),
+                              "mu": dict(tree_paths(o.mu)), "nu": dict(tree_paths(o.nu))}
+            one[f"{arch}@{cell}"] = {"layers": layers, "s_per_step": step_s,
+                                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del p, o
+        torch.cuda.empty_cache()
+    mesh.barrier()
+    t0 = section("one_process", t0)
+
+    # ---- across the ranks ----------------------------------------------------------
+    ops.reset_launches()
+    b = mesh_b["train_batch"]
+    pspecs = b.in_specs[0]
+    p = reshard_for_mesh(params, pspecs, mesh)
+    o = adamw_init(p)
+    rows = []
+    for items, mask in batches:
+        (p, o, m), dt, comm = timed(lambda: b.fn(p, o, reshard_for_mesh(items, batch_spec, mesh),
+                                                 reshard_for_mesh(mask, batch_spec, mesh)))
+        rows.append({"s": dt, "comm": comm, **{k: float(v) for k, v in m.items()}})
+    out["train"] = {"steps": rows}
+    t0 = section("train", t0)
+    whole = {"params": gather_from_mesh(p, pspecs, mesh), "mu": gather_from_mesh(o.mu, pspecs, mesh),
+             "nu": gather_from_mesh(o.nu, pspecs, mesh)}
+    del p, o
+    t0 = section("train_gather", t0)
+    if first:
+        for got, want in zip(rows, want_train["metrics"]):
+            for k in ("loss", "grad_norm"):
+                if not np.isclose(got[k], want[k], rtol=1e-4 if k == "grad_norm" else 1e-5, atol=0.0):
+                    raise AssertionError(f"BERT4Rec train across ranks: {k} {got[k]} against one process's {want[k]}")
+        lr = max(m["lr"] for m in want_train["metrics"])
+        noise = 0
+        for key in ("params", "mu", "nu"):
+            want = dict(tree_paths(want_train[key]))
+            for path, got in tree_paths(whole[key]):
+                noise += noise_count(got, want[path], lr=lr, steps=MESH_TRAIN_STEPS, what=f"BERT4Rec {key} {path}")
+        size = 3 * tree_size(whole["params"])
+        if noise > size // 10_000:
+            raise AssertionError(f"BERT4Rec train across ranks: {noise} of {size} elements differ from one process")
+        out["train"]["against_one_process"] = {"elements_beyond_1e-4": noise, "elements": size}
+        del want_train
+    del whole, batches
+    t0 = section("train_check", t0)
+
+    shared = torch.load(codes_path, weights_only=True, mmap=True)
+    adt = shared["adt"].to(dev)
+    params = reshard_for_mesh(params, pspecs, mesh)
+    b = mesh_b["serve_p99"]
+    items = reshard_for_mesh(p99_items, batch_spec, mesh)
+    block, dt, comm = timed(lambda: b.fn(params, items))
+    if first:  # the first rank's vocabulary block: the first columns
+        err = float((block[:MESH_P99_CHECK].double() - want_p99[:, :block.shape[1]].double()).abs().max())
+        if not bool(torch.isfinite(block).all()) or err > MESH_SCORE_ATOL:
+            raise AssertionError(f"serve_p99 across ranks: the first block's logits {err} from one process's")
+        del want_p99
+    del block
+    _, dt_warm, _ = timed(lambda: b.fn(params, items))
+    out["serve_p99"] = {"s_first": dt, "s": dt_warm, "comm": comm}
+    b = mesh_b["serve_bulk"]
+    (ids, scores), dt, comm = timed(lambda: b.fn(params, reshard_for_mesh(bulk_items, batch_spec, mesh)))
+    ids, scores = (gather_from_mesh(t, spec, mesh) for t, spec in zip((ids, scores), b.out_specs))
+    out["serve_bulk"] = {"sessions": ids.shape[0], "s": dt, "comm": comm}
+    if first:
+        out["serve_bulk"]["against_one_process"] = ids_near_ties(ids, scores, want_ids, want_scores,
+                                                                 "serve_bulk across ranks")
+        del want_ids, want_scores
+    del ids, scores
+    b = mesh_b["retrieval_cand"]
+    codes = reshard_for_mesh(shared["codes"], b.in_specs[2], mesh)
+    before = ops.launches["flash_scan"]
+    res, dt, comm = timed(lambda: b.fn(params, cand_items, codes, adt))
+    if ops.launches["flash_scan"] - before != 1:
+        raise AssertionError(f"retrieval_cand across ranks: rank {me} did not launch flash_scan once")
+    out["retrieval_cand"] = {"code_rows": codes.shape[0], "s_first": dt, "comm": comm,
+                             "ms": path_ms(lambda: b.fn(params, cand_items, codes, adt))}
+    if first:
+        out["retrieval_cand"].update(
+            dense=ids_near_ties(res[0], res[1], want_cand[0], want_cand[1], "retrieval_cand dense"),
+            flash=ids_near_ties(res[2][None], res[3][None], want_cand[2][None], want_cand[3][None],
+                                "retrieval_cand flash"))
+    del params, shared
+    t0 = section("serve", t0)
+
+    for arch, (cell, override, layers, batch, p0) in gnn.items():
+        b = mesh_b[arch]
+        p, o = p0, adamw_init(p0)
+        graph = steps.shard_graph(batch["graph"], mesh)
+        rows = []
+        for _ in range(MESH_GNN_STEPS):
+            (p, o, m), dt, comm = timed(lambda: b.fn(p, o, graph, batch["labels"]))
+            rows.append({"s": dt, "comm": comm, **{k: float(v) for k, v in m.items()}})
+        out[f"{arch}@{cell}"] = {"layers": layers, "steps": rows, "edges_this_rank": int(graph.senders.shape[0])}
+        if first:
+            got = {"metrics": rows[-1], "params": dict(tree_paths(p)), "mu": dict(tree_paths(o.mu)),
+                   "nu": dict(tree_paths(o.nu))}
+            ratios = gnn_state_ratios(got, want_gnn.pop(arch), MESH_GNN_STEPS)
+            if not all(np.isfinite(v) and v <= 1.0 for v in ratios.values()):
+                raise AssertionError(f"{arch} across ranks: difference over bound {ratios}")
+            out[f"{arch}@{cell}"]["difference_over_bound"] = ratios
+        del p, o, p0, graph, batch
+        t0 = section(arch, t0)
+    sync(dev)
+    out["launches"] = dict(ops.launches)
+    out["one_process"] = one
+    # flash_scan alone over this rank's rows, one rank at a time (after the counts)
+    for r in range(mesh.size):
+        if r == me:
+            out["flash_scan_ms"] = time_ms(lambda: ops.flash_scan(codes, adt))
+        mesh.barrier()
+    section("flash_scan_timing", t0)
+    out["sections_s"] = sections
+    every = [None] * mesh.size
+    torch.distributed.all_gather_object(every, out)
+    return every
+
+
+def mesh_steps_path(dev, smi: str, t_start: float) -> dict:
+    """Phase 17b: the recsys and GNN step bundles across ``MESH_STEPS_RANKS``
+    ranks sharing the card over ``gloo`` (``run_ranks``; a (data 1, model
+    2) mesh, so BERT4Rec's tensor-parallel split runs), each cell held on
+    the card against the port's own one-process step from the same weights
+    and inputs (``mesh_steps_rank``). Prints each cell's one-process time
+    beside every rank's, the ranks' start-up and rendezvous, the bytes
+    ``COMM`` counted, ``flash_scan``'s launches and ms a rank, beside the
+    card's name and power limit. Returns the launches summed over the
+    ranks."""
+    import torch
+
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    handover = tempfile.mkdtemp(prefix="chip-smoke-mesh-steps-")
+    try:
+        ranks = run_ranks(mesh_steps_rank, MESH_STEPS_RANKS, handover, device=dev, timeout=300)
+    finally:
+        shutil.rmtree(handover, ignore_errors=True)
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    if any(r["launches"]["flash_scan"] == 0 for r in ranks):
+        raise AssertionError("a rank of the mesh_steps phase never launched flash_scan")
+    emit({"phase": "mesh_steps", "card": smi, "ranks": MESH_STEPS_RANKS, "mesh": {"data": 1, "model": MESH_STEPS_RANKS},
+          "backend": ranks[0]["backend"], "one_process": ranks[0]["one_process"],
+          "per_rank": [{k: v for k, v in r.items() if k not in ("launches", "one_process")} for r in ranks],
+          "flash_scan_per_rank": [{"launches": r["launches"]["flash_scan"], "ms": r["flash_scan_ms"],
+                                   "code_rows": r["retrieval_cand"]["code_rows"]} for r in ranks],
+          "launches": launches, "phase_s": time.perf_counter() - t_phase,
+          "elapsed_s": time.perf_counter() - t_start})
+    return launches
+
+
 #: the examples and the arguments the smoke gives them: the distributed
-#: example's 2,000 rows (from 8,000; its program runs at the paper's width in
-#: phase 16 (a); PERF.md §4) in two segments on two ranks
-EXAMPLES = (("torch_quickstart", []), ("torch_distributed_build", ["--seg-size", "500", "--ranks", "2"]),
+#: example's 1,000 rows (from 8,000, then 2,000; its program runs at the
+#: paper's width in phase 16 (a); PERF.md §4) in two segments on two ranks
+EXAMPLES = (("torch_quickstart", []), ("torch_distributed_build", ["--seg-size", "250", "--ranks", "2"]),
             ("torch_retrieval_serving", []))
 
 
@@ -4329,6 +4674,9 @@ def main() -> int:
     # ---- 17. BERT4Rec's serving cells through launch/steps --------------------
     cell_launches = recsys_cells_path(dev, t_start)
 
+    # ---- 17b. the recsys and GNN step bundles across ranks ----------------------
+    mesh_step_launches = mesh_steps_path(dev, smi, t_start)
+
     # ---- 18. the examples -------------------------------------------------------
     ex_launches = examples_path(dev, t_start)
     l2_uses["examples"] = ex_launches["l2_batch"]
@@ -4344,7 +4692,8 @@ def main() -> int:
                                   + scale_launches[name] + retrieval_launches[name] + base_launches[name]
                                   + gen_launches[name] + serve_launches[name] + train_launches[name]
                                   + gnn_launches[name] + ann_ref_launches[name] + ann_launches[name]
-                                  + mesh_launches[name] + cell_launches[name] + ex_launches[name]),
+                                  + mesh_launches[name] + cell_launches[name] + mesh_step_launches[name]
+                                  + ex_launches[name]),
                      "max_abs_err": kr["max_abs_err"], "ms": kr["ms"],
                      "plain_ms": kr["plain_ms"], "bound_ms": kr["bound_ms"], "bound_by": kr["bound_by"],
                      "library_ms": kr["library_ms"], "shape": kr["shape"]})
@@ -4384,7 +4733,8 @@ def main() -> int:
             rows[-1]["table_64k"] = kern["limits"]["table_64k"]
         if name == "flash_scan":
             rows[-1]["launches_by_use"] = {"retrieval": retrieval_launches[name], "training": train_launches[name],
-                                           "recsys_cells": cell_launches[name], "examples": ex_launches[name]}
+                                           "recsys_cells": cell_launches[name],
+                                           "mesh_steps": mesh_step_launches[name], "examples": ex_launches[name]}
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -1,0 +1,105 @@
+"""Reductions across a mesh's ranks, with their gradients: what GSPMD
+inserts into the reference's sharded programs, written out for the port's
+step programs (``launch/steps.py``'s mesh cells).
+
+A :class:`MeshAxes` names some axes of a ``launch.mesh.Mesh``: the ranks
+that share this rank's coordinates off those axes form its group. On it:
+
+* :meth:`MeshAxes.copy_to` — forward the identity, backward an all-reduce
+  (sum) of the gradient. It marks where replicated state enters a sharded
+  region (node state gathered onto a rank's edges, the input of a
+  column-parallel product): each rank's gradient is then a partial sum.
+* :meth:`MeshAxes.reduce_from` — forward an all-reduce (sum), backward the
+  identity. It marks where a sharded region's partial sums leave it.
+  ``torch.distributed.nn.functional.all_reduce`` all-reduces again in its
+  backward, which, where every rank then computes the same replicated
+  loss, scales the gradient by the group's size: it is not this.
+* :meth:`MeshAxes.max` and :meth:`MeshAxes.sum` — all-reduces that carry
+  no gradient (a softmax's shift, a count, a metric).
+* :meth:`MeshAxes.sum_leaves` — one all-reduce (sum) of many tensors
+  flattened into one buffer (partial gradients).
+
+On a group one rank wide every one of them returns its input itself, with
+no rendezvous, so a 1-wide mesh computes what no mesh computes, bit for
+bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class MeshAxes:
+    """``axes`` (a name or a tuple of names) of ``mesh``."""
+
+    def __init__(self, mesh, axes):
+        self.mesh = mesh
+        self.axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        self.size = 1
+        for a in self.axes:
+            self.size *= mesh.shape[a]
+
+    def __repr__(self) -> str:
+        return f"MeshAxes({self.axes}, size={self.size})"
+
+    @property
+    def index(self) -> int:
+        """This rank's position along the axes (the shard it holds)."""
+        return self.mesh.axis_index(self.axes) if self.axes else 0
+
+    def copy_to(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.size == 1 else _CopyTo.apply(t, self)
+
+    def reduce_from(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.size == 1 else _ReduceFrom.apply(t, self)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.size == 1 else self.mesh.all_reduce(t, self.axes, "max")
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.size == 1 else self.mesh.all_reduce(t, self.axes, "sum")
+
+    def gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every member's ``t`` concatenated along ``dim`` in shard order (no
+        gradient)."""
+        return t if self.size == 1 else torch.cat(self.mesh.all_gather(t, self.axes), dim)
+
+    def sum_leaves(self, leaves: list) -> list:
+        """The all-reduced sums of ``leaves`` (float32 tensors), through one
+        flattened buffer."""
+        if self.size == 1 or not leaves:
+            return list(leaves)
+        flat = self.sum(torch.cat([t.reshape(-1) for t in leaves]))
+        return [part.view_as(t) for part, t in zip(flat.split([t.numel() for t in leaves]), leaves)]
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ax):
+        ctx.ax = ax
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.ax.sum(grad), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ax):
+        return ax.sum(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def axes_of(spec) -> tuple[str, ...]:
+    """The mesh axes a ``PartitionSpec``-like spec (per dim: None, a name or
+    a tuple of names) shards over, in order."""
+    out: list[str] = []
+    for names in spec or ():
+        if names is None:
+            continue
+        out.extend((names,) if isinstance(names, str) else names)
+    return tuple(out)

@@ -48,13 +48,16 @@ from repro_torch.utils import resolve_device
 _RANK_DEVICE: torch.device | None = None
 
 #: the collectives' traffic in this process, read by the smoke and the
-#: example: gathers made, bytes received by them, bytes copied through the
-#: host for a ``gloo`` group on the card, and seconds spent in them
-COMM = {"gathers": 0, "gathered_bytes": 0, "staged_bytes": 0, "gather_s": 0.0}
+#: example: gathers made, bytes received by them, and seconds spent in
+#: them; all-reduces made, bytes each contributed, and seconds; bytes
+#: copied through the host for a ``gloo`` group on the card (both kinds)
+COMM = {"gathers": 0, "gathered_bytes": 0, "gather_s": 0.0, "reduces": 0, "reduced_bytes": 0, "reduce_s": 0.0,
+        "staged_bytes": 0}
 
 
 def reset_comm() -> None:
-    COMM.update(gathers=0, gathered_bytes=0, staged_bytes=0, gather_s=0.0)
+    COMM.update(gathers=0, gathered_bytes=0, gather_s=0.0, reduces=0, reduced_bytes=0, reduce_s=0.0,
+                staged_bytes=0)
 
 
 def _world() -> tuple[int, int]:
@@ -174,6 +177,31 @@ class Mesh:
         COMM["gathered_bytes"] += src.nbytes * len(members)
         COMM["gather_s"] += time.perf_counter() - t0
         return out
+
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
+        """The elementwise ``op`` ("sum" or "max") of every member's ``t``
+        (equal shapes) along ``axes``, a new tensor on this rank's device;
+        ``t`` itself where the group is one rank wide. A ``gloo`` group takes
+        no card tensors, so there the tensor goes through the host, as in
+        :meth:`all_gather` (counted in ``COMM["staged_bytes"]``); ``nccl``
+        reduces on the card. No gradient is carried
+        (``distributed.collectives`` pairs it with autograd)."""
+        reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        members = self.members(axes)
+        if len(members) == 1:
+            return t
+        g = self.group(axes)
+        t0 = time.perf_counter()
+        staged = t.device.type == "cuda" and dist.get_backend(g) == "gloo"
+        buf = t.detach().to("cpu", copy=True) if staged else t.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(buf, op=reduce_op, group=g)
+        if staged:
+            buf = buf.to(t.device)
+            COMM["staged_bytes"] += 2 * buf.nbytes
+        COMM["reduces"] += 1
+        COMM["reduced_bytes"] += buf.nbytes
+        COMM["reduce_s"] += time.perf_counter() - t0
+        return buf
 
     def broadcast_object(self, obj):
         """``obj`` from the mesh's first rank to every rank (pickled,
@@ -304,7 +332,9 @@ def run_ranks(fn, n: int, *args, device: str | torch.device = "cuda", timeout: f
     collective. Rank r runs on ``cuda:{r mod cards}`` (``device="cpu"``: on
     the CPU, with its share of the cores as torch threads) with ``mesh = make_segment_mesh(n)`` ambient. The group is
     ``nccl`` when every rank has a card of its own, else ``gloo`` (NCCL
-    refuses two ranks on one card). The kernels are built first, here.
+    refuses two ranks on one card). NCCL with one rank a card has never
+    run: no host this port was tested on had two cards (ROADMAP queue 1,
+    item 7.6); ``gloo`` is the tested path. The kernels are built first, here.
     A rank that raises, or a collective that times out, raises here (a
     ``RuntimeError`` with the first failing rank's traceback); the other
     ranks are stopped."""
@@ -318,7 +348,7 @@ def run_ranks(fn, n: int, *args, device: str | torch.device = "cuda", timeout: f
         build.build_all()
         torch.cuda.empty_cache()
         if n <= torch.cuda.device_count():
-            backend = "nccl"
+            backend = "nccl"  # never run: no host had two cards (ROADMAP 7.6)
     with tempfile.TemporaryDirectory(prefix="repro-ranks-") as tmp:
         try:
             torch.multiprocessing.spawn(

@@ -10,7 +10,17 @@ maxima. On the card ``index_add`` adds with atomics, so its float sums are
 not in a fixed order there; the CPU path is deterministic.
 
 Graphs are padded to static (n_node_max, n_edge_max); masks carry
-validity. The reference's ``graph_input_specs`` (XLA dry-run stand-ins)
+validity.
+
+Across ranks (``launch/steps.py``'s GNN cell under a mesh) a batch holds
+this rank's slice of the edges and every node (``GraphBatch.edge_axes``:
+the ``distributed.collectives.MeshAxes`` the edges are sharded over). The
+models then pass node state entering the edges through :func:`to_edges`
+(its gradient all-reduced in the backward) and every edge → node
+reduction takes ``over=edge_axes`` (partial sums all-reduced; a maximum
+across ranks carries no gradient). Node → graph sums stay local: nodes are
+replicated. With ``edge_axes`` None (or one rank wide) every function here
+is the one-process one. The reference's ``graph_input_specs`` (XLA dry-run stand-ins)
 waits for the port's ``launch/dryrun.py`` (ROADMAP queue 1, item 9d).
 """
 
@@ -24,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.utils import resolve_device, to_numpy, tree_leaves, tree_map, tree_unflatten
+from repro_torch.utils import resolve_device, to_numpy, tree_leaves, tree_map, tree_paths, tree_unflatten
 
 Params = dict[str, Any]
 
@@ -43,6 +53,8 @@ class GraphBatch:
     graph_id:  (N,) int — sub-graph id per node (batched-molecule readout).
     n_graphs:  int, the number of sub-graphs (a Python int, as the
                reference's static pytree aux data).
+    edge_axes: the mesh axes a rank's slice of the edges is one shard of
+               (``collectives.MeshAxes``), or None: every edge is here.
     """
 
     nodes: torch.Tensor
@@ -54,6 +66,7 @@ class GraphBatch:
     edge_mask: torch.Tensor
     graph_id: torch.Tensor
     n_graphs: int
+    edge_axes: Any = None
 
     def _replace(self, **kw) -> "GraphBatch":
         return dataclasses.replace(self, **kw)
@@ -64,40 +77,66 @@ class GraphBatch:
                                 if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
-def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """``jax.ops.segment_sum``: (E, …) -> (num_segments, …); ids in range."""
+def to_edges(x: torch.Tensor, over=None) -> torch.Tensor:
+    """Node state about to be gathered onto this rank's edges: the identity,
+    whose gradient is all-reduced over the edge shards ``over``."""
+    return x if over is None else over.copy_to(x)
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, over=None) -> torch.Tensor:
+    """``jax.ops.segment_sum``: (E, …) -> (num_segments, …); ids in range.
+    ``over``: the edge shards whose partial sums complete it."""
     out = torch.zeros((num_segments, *data.shape[1:]), dtype=data.dtype, device=data.device)
-    return out.index_add(0, segment_ids.long(), data)
+    out = out.index_add(0, segment_ids.long(), data)
+    return out if over is None else over.reduce_from(out)
 
 
-def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, over=None) -> torch.Tensor:
     """``jax.ops.segment_max``: an empty segment gives −inf (the identity
-    of max), so the output starts −inf and the reduction leaves it out."""
+    of max), so the output starts −inf and the reduction leaves it out.
+    Across the edge shards ``over`` the maximum carries no gradient."""
     out = torch.full((num_segments, *data.shape[1:]), -math.inf, dtype=data.dtype, device=data.device)
     idx = segment_ids.long().view(-1, *([1] * (data.dim() - 1))).expand_as(data)
-    return out.scatter_reduce(0, idx, data, "amax", include_self=False)
+    out = out.scatter_reduce(0, idx, data, "amax", include_self=False)
+    return out if over is None else over.max(out)
 
 
-def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    s = segment_sum(data, segment_ids, num_segments)
-    c = segment_sum(torch.ones(data.shape[:1], dtype=torch.float32, device=data.device), segment_ids, num_segments)
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, over=None) -> torch.Tensor:
+    """Sum over count, both completed over the edge shards before the divide."""
+    s = segment_sum(data, segment_ids, num_segments, over)
+    c = segment_sum(torch.ones(data.shape[:1], dtype=torch.float32, device=data.device), segment_ids, num_segments,
+                    over)
     return s / torch.clamp_min(c, 1.0).view(-1, *([1] * (data.dim() - 1)))
 
 
 def scatter_edges_to_nodes(messages: torch.Tensor, receivers: torch.Tensor, n_nodes: int, *,
-                           reduce: str = "sum") -> torch.Tensor:
-    """(E, …) messages -> (N, …) aggregated by receiver."""
+                           reduce: str = "sum", over=None) -> torch.Tensor:
+    """(E, …) messages -> (N, …) aggregated by receiver (over every edge
+    shard of ``over``)."""
     if reduce == "sum":
-        return segment_sum(messages, receivers, n_nodes)
+        return segment_sum(messages, receivers, n_nodes, over)
     if reduce == "mean":
-        return segment_mean(messages, receivers, n_nodes)
+        return segment_mean(messages, receivers, n_nodes, over)
     if reduce == "max":
-        return segment_max(messages, receivers, n_nodes)
+        return segment_max(messages, receivers, n_nodes, over)
     raise ValueError(reduce)
 
 
-def degree(receivers: torch.Tensor, edge_mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
-    return segment_sum(edge_mask.to(torch.float32), receivers, n_nodes)
+def degree(receivers: torch.Tensor, edge_mask: torch.Tensor, n_nodes: int, over=None) -> torch.Tensor:
+    return segment_sum(edge_mask.to(torch.float32), receivers, n_nodes, over)
+
+
+def edge_param_leaves(params: Params, edge_params: tuple[str, ...]) -> list[bool]:
+    """Per leaf of ``params`` (``tree_leaves`` order): whether it acts on
+    edges (its path, as ``layers/B``, is or lies under one of
+    ``edge_params``), so that its gradient on one rank's edge slice is a
+    partial sum over the edge shards. The other leaves act on the
+    replicated nodes, and their gradients are whole on every rank."""
+    out = []
+    for path, _ in tree_paths(params):
+        plain = path.replace("['", "").replace("']", "")
+        out.append(any(plain == e or plain.startswith(e + "/") for e in edge_params))
+    return out
 
 
 def normal(gen: torch.Generator, shape, device, scale: float = 1.0) -> torch.Tensor:

@@ -22,6 +22,7 @@ from repro_torch.models.gnn.common import (
     scatter_edges_to_nodes,
     segment_sum,
     stack_layers,
+    to_edges,
     unstack_layers,
 )
 from repro_torch.utils import resolve_device
@@ -33,6 +34,10 @@ class EGNNConfig:
     d_hidden: int = 64
     d_in: int = 16
     d_out: int = 1  # graph-level regression target
+
+
+#: the parameters that act on edges (``common.edge_param_leaves``)
+EDGE_PARAMS = ("layers/phi_e", "layers/phi_x")
 
 
 def init_egnn(gen: torch.Generator, cfg: EGNNConfig, *, device: str | torch.device = "cuda") -> Params:
@@ -53,15 +58,17 @@ def egnn_forward(p: Params, g: GraphBatch, cfg: EGNNConfig):
     x = g.positions
     emask = g.edge_mask[:, None].to(h.dtype)
     snd, rcv = g.senders.long(), g.receivers.long()
+    ax = g.edge_axes
     for lp in unstack_layers(p["layers"]):
-        diff = x.index_select(0, rcv) - x.index_select(0, snd)
+        xe, he = to_edges(x, ax), to_edges(h, ax)
+        diff = xe.index_select(0, rcv) - xe.index_select(0, snd)
         d2 = torch.sum(diff * diff, -1, keepdim=True)
-        m = mlp_apply(lp["phi_e"], torch.cat([h.index_select(0, rcv), h.index_select(0, snd), d2], -1)) * emask
+        m = mlp_apply(lp["phi_e"], torch.cat([he.index_select(0, rcv), he.index_select(0, snd), d2], -1)) * emask
         w = mlp_apply(lp["phi_x"], m)  # receiver-centric position update
-        dx = scatter_edges_to_nodes(diff * w * emask, rcv, n)
-        deg = scatter_edges_to_nodes(emask, rcv, n) + 1.0
+        dx = scatter_edges_to_nodes(diff * w * emask, rcv, n, over=ax)
+        deg = scatter_edges_to_nodes(emask, rcv, n, over=ax) + 1.0
         x = x + dx / deg
-        agg = scatter_edges_to_nodes(m, rcv, n)
+        agg = scatter_edges_to_nodes(m, rcv, n, over=ax)
         h = h + mlp_apply(lp["phi_h"], torch.cat([h, agg], -1))
     out = mlp_apply(p["head"], h) * g.node_mask[:, None]
     return segment_sum(out, g.graph_id, g.n_graphs), x

@@ -15,6 +15,12 @@ Two places differ in form from the reference and not in value:
   ``exp(−inf − (−inf))`` is nan there and its ``where`` zeroes it; here
   the shift is 0 on such a receiver, so the weights are the same zeros
   and the backward carries no nan.
+
+With its edges sharded across ranks (``GraphBatch.edge_axes``) the
+softmax over a receiver's edges spans every rank: the shift is the
+maximum over every rank's edges (no gradient: the softmax does not
+depend on it), the denominator the sum over all of them; a receiver
+whose edges are all masked on every rank keeps the 0 shift.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from repro_torch.models.gnn.common import (
     segment_max,
     segment_sum,
     stack_layers,
+    to_edges,
     unstack_layers,
 )
 from repro_torch.models.gnn.nequip import species_of
@@ -56,6 +63,10 @@ class EquiformerV2Config:
     @property
     def dim(self) -> int:
         return so3.n_coeffs(self.l_max)
+
+
+#: the parameters that act on edges (``common.edge_param_leaves``)
+EDGE_PARAMS = ("layers/w_m0", "layers/w_mr", "layers/radial", "layers/attn")
 
 
 def _m_indices(l_max: int, m: int) -> list[int]:
@@ -130,23 +141,24 @@ def equiformer_v2_forward(p: Params, g: GraphBatch, cfg: EquiformerV2Config):
     rbf = radial_basis(r, n_rbf=cfg.n_rbf, cutoff=cfg.cutoff)
     heads = cfg.n_heads
     e = snd.shape[0]
+    ax = g.edge_axes
 
     for lp in unstack_layers(p["layers"]):
         # into the edge frame, SO(2) conv, radial scale, back
-        f = so3.rotate_coeffs(cfg.l_max, h.index_select(0, snd), rot)
+        f = so3.rotate_coeffs(cfg.l_max, to_edges(h, ax).index_select(0, snd), rot)
         f = _so2_conv(f, lp, cfg)
         f = f * mlp_apply(lp["radial"], rbf)[:, None, :]
         f = so3.rotate_coeffs(cfg.l_max, f, rot_inv)
         # attention from the invariant channel
         scores = torch.where(valid, mlp_apply(lp["attn"], f[:, 0, :]), -torch.inf)  # (E, heads)
-        smax = segment_max(scores, rcv, n)
+        smax = segment_max(scores, rcv, n, over=ax)  # across ranks: the max over every shard
         smax = torch.where(torch.isfinite(smax), smax, 0.0)  # all-masked receivers (module docstring)
         w = torch.where(valid, torch.exp(scores - smax.index_select(0, rcv)), 0.0)
-        denom = segment_sum(w, rcv, n) + 1e-9
-        alpha = w / denom.index_select(0, rcv)  # (E, heads)
+        denom = segment_sum(w, rcv, n, over=ax) + 1e-9
+        alpha = w / to_edges(denom, ax).index_select(0, rcv)  # (E, heads)
         msg = f.reshape(e, cfg.dim, heads, cfg.channels // heads) * alpha[:, None, :, None]
         msg = msg.reshape(e, cfg.dim, cfg.channels) * emask[:, :, None]
-        agg = torch.einsum("nmc,cd->nmd", scatter_edges_to_nodes(msg, rcv, n), lp["proj"])
+        agg = torch.einsum("nmc,cd->nmd", scatter_edges_to_nodes(msg, rcv, n, over=ax), lp["proj"])
         h = h + agg
         h0 = h[:, 0, :]  # the invariant FFN on the scalars
         h = torch.cat([(h0 + mlp_apply(lp["ffn_s"], h0))[:, None, :], h[:, 1:, :]], 1)

@@ -20,6 +20,7 @@ from repro_torch.models.gnn.common import (
     normal,
     scatter_edges_to_nodes,
     stack_layers,
+    to_edges,
     unstack_layers,
 )
 from repro_torch.utils import resolve_device
@@ -32,6 +33,10 @@ class GatedGCNConfig:
     d_in: int = 1433
     d_edge_in: int = 0
     n_classes: int = 7
+
+
+#: the parameters that act on edges (``common.edge_param_leaves``)
+EDGE_PARAMS = ("embed_e", "layers/B", "layers/C", "layers/D", "layers/E", "layers/ln_e")
 
 
 def _lin(gen, din, dout, device):
@@ -70,13 +75,15 @@ def gatedgcn_forward(p: Params, g: GraphBatch, cfg: GatedGCNConfig) -> torch.Ten
         e = torch.zeros((g.senders.shape[0], cfg.d_hidden), dtype=h.dtype, device=h.device)
     emask = g.edge_mask[:, None].to(h.dtype)
     snd, rcv = g.senders.long(), g.receivers.long()
+    ax = g.edge_axes
     for lp in unstack_layers(p["layers"]):
-        hs, hr = h.index_select(0, snd), h.index_select(0, rcv)
+        he = to_edges(h, ax)
+        hs, hr = he.index_select(0, snd), he.index_select(0, rcv)
         e_new = e + F.relu(_norm(e @ lp["C"] + hr @ lp["D"] + hs @ lp["E"], lp["ln_e"]))
         gate = torch.sigmoid(e_new) * emask
         msg = gate * (hs @ lp["B"])
-        num = scatter_edges_to_nodes(msg, rcv, n)
-        den = scatter_edges_to_nodes(gate, rcv, n) + 1e-6
+        num = scatter_edges_to_nodes(msg, rcv, n, over=ax)
+        den = scatter_edges_to_nodes(gate, rcv, n, over=ax) + 1e-6
         h = h + F.relu(_norm(h @ lp["A"] + num / den, lp["ln_h"]))
         e = e_new
     return h @ p["head"]

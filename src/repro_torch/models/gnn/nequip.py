@@ -34,6 +34,7 @@ from repro_torch.models.gnn.common import (
     scatter_edges_to_nodes,
     segment_sum,
     stack_layers,
+    to_edges,
     unstack_layers,
 )
 from repro_torch.utils import resolve_device
@@ -58,6 +59,10 @@ class NequIPConfig:
                     if abs(l1 - l2) <= l3 <= l1 + l2 and (l1 + l2 + l3) % 2 == 0:
                         out.append((l1, l2, l3))
         return out
+
+
+#: the parameters that act on edges (``common.edge_param_leaves``)
+EDGE_PARAMS = ("layers/radial",)
 
 
 def init_nequip(gen: torch.Generator, cfg: NequIPConfig, *, device: str | torch.device = "cuda") -> Params:
@@ -100,14 +105,14 @@ def nequip_forward(p: Params, g: GraphBatch, cfg: NequIPConfig):
     for lp in unstack_layers(p["layers"]):
         rw = mlp_apply(lp["radial"], rbf)  # (E, n_paths*C)
         rw = rw.reshape(rw.shape[0], len(cfg.paths), cfg.channels)
-        h_src = h.index_select(0, snd)  # (E, dim, C)
+        h_src = to_edges(h, g.edge_axes).index_select(0, snd)  # (E, dim, C)
         blocks: list = [None] * (cfg.l_max + 1)  # each degree's sum over its paths, in path order
         for pi, (l1, l2, l3) in enumerate(cfg.paths):
             part = torch.einsum("eac,eb,abd->edc", h_src[:, sl[l1], :], y_edge[:, sl[l2]], gaunts[(l1, l2, l3)])
             part = part * rw[:, pi, None, :]  # (E, 2l3+1, C)
             blocks[l3] = part if blocks[l3] is None else blocks[l3] + part
         msg = torch.cat(blocks, 1) * emask[:, None, None]
-        agg = scatter_edges_to_nodes(msg, rcv, n)  # (N, dim, C)
+        agg = scatter_edges_to_nodes(msg, rcv, n, over=g.edge_axes)  # (N, dim, C)
         scal = agg[:, 0, :] @ lp["mix"][0]
         gates = torch.sigmoid(scal @ lp["gate"])  # (N, l_max)
         new = [F.silu(scal)[:, None, :]]

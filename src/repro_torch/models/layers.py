@@ -176,14 +176,24 @@ def _qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, n_heads: int, n_kv: 
 
 
 def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
-                rope_theta: float = 10000.0, block_q: int | None = None, causal: bool = True) -> torch.Tensor:
+                rope_theta: float = 10000.0, block_q: int | None = None, causal: bool = True,
+                tp=None) -> torch.Tensor:
     """Grouped-query attention over the weights ``p`` (``wq``, ``wk``,
     ``wv``, ``wo``; ``bq``, ``bk``, ``bv`` where present): x (B, S, D),
-    positions (B, S) -> (B, S, D)."""
+    positions (B, S) -> (B, S, D).
+
+    ``tp`` (a ``distributed.collectives.MeshAxes``) splits the heads over
+    its ranks: ``p`` holds this rank's column block of ``wq``/``wk``/``wv``
+    (and the biases), its heads, and the matching row block of ``wo``; the
+    input enters through ``copy_to`` and the partial outputs leave through
+    ``reduce_from``. ``n_heads`` and ``n_kv`` are the whole model's."""
     b, s, _ = x.shape
+    if tp is not None:
+        x, n_heads, n_kv = tp.copy_to(x), n_heads // tp.size, n_kv // tp.size
     q, k, v = _qkv(p, x, positions, n_heads, n_kv, head_dim, rope_theta)
     out = attend(q, k, v, causal=causal, block_q=block_q)
-    return matmul(out.reshape(b, s, n_heads * head_dim), p["wo"])
+    out = matmul(out.reshape(b, s, n_heads * head_dim), p["wo"])
+    return out if tp is None else tp.reduce_from(out)
 
 
 def gqa_prefill(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
@@ -279,9 +289,14 @@ class SwiGLU(nn.Module):
         return mlp_forward(self.params(), x)
 
 
-def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """``(silu(x @ wg) * (x @ wu)) @ wd`` over the weights ``p``."""
-    return matmul(F.silu(matmul(x, p["wg"])) * matmul(x, p["wu"]), p["wd"])
+def mlp_forward(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """``(silu(x @ wg) * (x @ wu)) @ wd`` over the weights ``p``. ``tp``
+    splits the hidden width over its ranks as ``gqa_forward`` splits the
+    heads: ``wg``/``wu`` by columns, ``wd`` by rows."""
+    if tp is not None:
+        x = tp.copy_to(x)
+    out = matmul(F.silu(matmul(x, p["wg"])) * matmul(x, p["wu"]), p["wd"])
+    return out if tp is None else tp.reduce_from(out)
 
 
 # ---------------------------------------------------------------------------

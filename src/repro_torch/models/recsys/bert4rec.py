@@ -10,6 +10,16 @@ runs the optimizer). Serving scores the next item at a session's final
 ``models/recsys/retrieval.py`` scores against the catalog. The module and
 the tree carry across both ways with :func:`params_from_jax` and
 :func:`params_to_jax`; both forwards run :func:`block_forward`.
+
+Tensor-parallel over a mesh's ``"model"`` axis (``tp``, a
+``distributed.collectives.MeshAxes``; ``launch/steps.py``'s mesh cells),
+the tree holds this rank's shards as the reference's ``_b4r_specs`` lays
+them out: the tied item table and ``out_bias`` by vocabulary rows, the
+attention by heads, the MLP by hidden columns. The item lookup is
+vocabulary-parallel (each rank looks up the ids in its rows, zeros for the
+others, summed across the ranks), logits come per vocabulary shard, and
+the cloze loss is a vocabulary-parallel log-softmax. ``tp`` None, or one
+rank wide, is the one-process model bit for bit.
 """
 
 from __future__ import annotations
@@ -67,37 +77,66 @@ class Block(nn.Module):
                 **{k: getattr(self, k) for k in _BLOCK_NORMS}}
 
 
-def block_forward(blk: dict, cfg: Bert4RecConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """One pre-norm encoder block over the per-block tree ``blk``."""
+def block_forward(blk: dict, cfg: Bert4RecConfig, x: torch.Tensor, positions: torch.Tensor,
+                  tp=None) -> torch.Tensor:
+    """One pre-norm encoder block over the per-block tree ``blk`` (heads and
+    hidden columns split over ``tp``)."""
     h = L.layer_norm(x, blk["ln1"], blk["ln1b"])
     x = x + L.gqa_forward(blk["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_heads,
-                          head_dim=cfg.head_dim, causal=False)
+                          head_dim=cfg.head_dim, causal=False, tp=tp)
     h = L.layer_norm(x, blk["ln2"], blk["ln2b"])
-    return x + L.mlp_forward(blk["mlp"], h)
+    return x + L.mlp_forward(blk["mlp"], h, tp)
 
 
-def _encode(p: dict, blocks, cfg: Bert4RecConfig, items: torch.Tensor) -> torch.Tensor:
+def row_base(table: torch.Tensor, tp) -> int:
+    """The first vocabulary row of this rank's shard of ``table``."""
+    return 0 if tp is None else tp.index * table.shape[0]
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor, tp=None) -> torch.Tensor:
+    """``table[ids]`` where ``table`` is this rank's row shard over ``tp``:
+    each rank looks up the ids in its rows and gives zeros for the rest,
+    and the ranks' rows are summed (``reduce_from``; one term is not zero,
+    so the sum is exact)."""
+    if tp is None or tp.size == 1:
+        return table[ids]
+    local = ids - row_base(table, tp)
+    own = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(own, local, 0)]
+    return tp.reduce_from(torch.where(own[..., None], rows, 0.0))
+
+
+def _encode(p: dict, blocks, cfg: Bert4RecConfig, items: torch.Tensor, tp=None) -> torch.Tensor:
     """items (B, S) int -> hidden (B, S, D) over the top-level parameters
     ``p`` and the per-block trees ``blocks``; items move to the table's
     device."""
     items = torch.as_tensor(items).to(p["item_embed"].device).long()
     b, s = items.shape
-    x = (p["item_embed"][items] + p["pos_embed"][None, :s]).to(cfg.dtype)
+    x = (lookup(p["item_embed"], items, tp) + p["pos_embed"][None, :s]).to(cfg.dtype)
     positions = torch.arange(s, device=items.device).expand(b, s)
     for blk in blocks:
-        x = block_forward(blk, cfg, x, positions)
+        x = block_forward(blk, cfg, x, positions, tp)
     return L.layer_norm(x, p["ln_f"], p["ln_fb"])
 
 
-def _serve(p: dict, blocks, cfg: Bert4RecConfig, items: torch.Tensor) -> torch.Tensor:
+def _serve(p: dict, blocks, cfg: Bert4RecConfig, items: torch.Tensor, tp=None) -> torch.Tensor:
     """The final position's hidden state: (B, S) -> (B, D) float32 query
     vectors."""
-    return _encode(p, blocks, cfg, items)[:, -1, :].to(torch.float32)
+    return _encode(p, blocks, cfg, items, tp)[:, -1, :].to(torch.float32)
 
 
-def _score_all(p: dict, blocks, cfg: Bert4RecConfig, items: torch.Tensor) -> torch.Tensor:
-    """Logits over the whole vocabulary (B, V+1)."""
-    return _serve(p, blocks, cfg, items) @ p["item_embed"].T + p["out_bias"]
+def _logits(p: dict, h: torch.Tensor, tp=None) -> torch.Tensor:
+    """Hidden states against the tied table: this rank's vocabulary shard
+    of the logits (the hidden states enter the shard through ``copy_to``)."""
+    if tp is not None:
+        h = tp.copy_to(h)
+    return h @ p["item_embed"].T + p["out_bias"]
+
+
+def _score_all(p: dict, blocks, cfg: Bert4RecConfig, items: torch.Tensor, tp=None) -> torch.Tensor:
+    """Logits over the whole vocabulary (B, V+1); over ``tp``, this rank's
+    vocabulary block (B, (V+1) / ranks)."""
+    return _logits(p, _serve(p, blocks, cfg, items, tp), tp)
 
 
 def _unstack(p: dict, cfg: Bert4RecConfig) -> list:
@@ -106,37 +145,62 @@ def _unstack(p: dict, cfg: Bert4RecConfig) -> list:
     return [tree_map(lambda t, i=i: t[i], p["blocks"]) for i in range(cfg.n_blocks)]
 
 
-def bert4rec_encode(p: dict, cfg: Bert4RecConfig, items: torch.Tensor) -> torch.Tensor:
-    """items (B, S) -> hidden (B, S, D) over the reference's parameter tree;
-    carries gradients."""
-    return _encode(p, _unstack(p, cfg), cfg, items)
+def bert4rec_encode(p: dict, cfg: Bert4RecConfig, items: torch.Tensor, tp=None) -> torch.Tensor:
+    """items (B, S) -> hidden (B, S, D) over the reference's parameter tree
+    (this rank's shards over ``tp``); carries gradients."""
+    return _encode(p, _unstack(p, cfg), cfg, items, tp)
 
 
-def bert4rec_loss(p: dict, cfg: Bert4RecConfig, items: torch.Tensor, mask_positions: torch.Tensor) -> torch.Tensor:
+def _target_log_prob(logits: torch.Tensor, ids: torch.Tensor, tp) -> torch.Tensor:
+    """log softmax(logits)[ids] where ``logits`` is this rank's vocabulary
+    shard over ``tp``: the shift is the maximum over every shard (no
+    gradient: the softmax does not depend on it), the sum of exponentials
+    and the target's logit (from the rank that owns it) are summed across
+    the shards."""
+    z = logits - tp.max(logits.detach().amax(-1, keepdim=True))
+    lse = torch.log(tp.reduce_from(torch.exp(z).sum(-1)))
+    local = ids - tp.index * logits.shape[-1]
+    own = (local >= 0) & (local < logits.shape[-1])
+    target = z.gather(-1, torch.where(own, local, 0)[..., None])[..., 0]
+    return tp.reduce_from(torch.where(own, target, 0.0)) - lse
+
+
+def bert4rec_loss(p: dict, cfg: Bert4RecConfig, items: torch.Tensor, mask_positions: torch.Tensor, *,
+                  tp=None, batch=None) -> torch.Tensor:
     """Cloze loss over the parameter tree ``p``: items (B, S); the positions
     where ``mask_positions`` (B, S) is set are replaced with [MASK], and the
     mean negative log-likelihood of their original ids under the tied
-    softmax over every item (and [MASK]) is returned, a 0-dim float32."""
+    softmax over every item (and [MASK]) is returned, a 0-dim float32.
+
+    Across ranks ``p`` holds this rank's shards over ``tp`` (the model
+    axis) and the sessions are its slice over ``batch`` (the batch axes):
+    the mean's denominator counts the masked positions of every slice, so
+    the loss is this slice's part of the global batch's mean, which the
+    ranks along ``batch`` sum."""
     dev = p["item_embed"].device
     items = torch.as_tensor(items).to(dev).long()
     mask_positions = torch.as_tensor(mask_positions).to(dev)
     masked = torch.where(mask_positions, cfg.mask_id, items)
-    h = bert4rec_encode(p, cfg, masked)  # (B, S, D)
-    logits = h.to(torch.float32) @ p["item_embed"].T + p["out_bias"]  # (B, S, V+1)
-    lp = torch.log_softmax(logits, dim=-1)
-    ll = lp.gather(-1, items[..., None])[..., 0]
+    h = bert4rec_encode(p, cfg, masked, tp)  # (B, S, D)
+    logits = _logits(p, h.to(torch.float32), tp)  # (B, S, V+1), or its vocabulary shard
+    if tp is None or tp.size == 1:
+        ll = torch.log_softmax(logits, dim=-1).gather(-1, items[..., None])[..., 0]
+    else:
+        ll = _target_log_prob(logits, items, tp)
     m = mask_positions.to(torch.float32)
-    return -torch.sum(ll * m) / torch.clamp_min(torch.sum(m), 1.0)
+    count = torch.sum(m) if batch is None else batch.sum(torch.sum(m))
+    return -torch.sum(ll * m) / torch.clamp_min(count, 1.0)
 
 
-def bert4rec_serve(p: dict, cfg: Bert4RecConfig, items: torch.Tensor) -> torch.Tensor:
-    """:meth:`Bert4Rec.serve` over the parameter tree."""
-    return _serve(p, _unstack(p, cfg), cfg, items)
+def bert4rec_serve(p: dict, cfg: Bert4RecConfig, items: torch.Tensor, tp=None) -> torch.Tensor:
+    """:meth:`Bert4Rec.serve` over the parameter tree (its shards over ``tp``)."""
+    return _serve(p, _unstack(p, cfg), cfg, items, tp)
 
 
-def bert4rec_score_all(p: dict, cfg: Bert4RecConfig, items: torch.Tensor) -> torch.Tensor:
-    """:meth:`Bert4Rec.score_all` over the parameter tree."""
-    return _score_all(p, _unstack(p, cfg), cfg, items)
+def bert4rec_score_all(p: dict, cfg: Bert4RecConfig, items: torch.Tensor, tp=None) -> torch.Tensor:
+    """:meth:`Bert4Rec.score_all` over the parameter tree; over ``tp``, this
+    rank's vocabulary block of the logits."""
+    return _score_all(p, _unstack(p, cfg), cfg, items, tp)
 
 
 class Bert4Rec(nn.Module):

@@ -11,7 +11,8 @@ the survivors, data shards reassigned by rank.
 
 A mesh's axis sizes are a mapping of axis name → size (``mesh.shape``,
 as in JAX); ``reshard_for_mesh`` places a tree on a ``launch.mesh.Mesh``
-of ranks, each rank taking its own shard.
+of ranks, each rank taking its own shard, and ``gather_from_mesh`` puts
+the whole tree back together on every rank.
 """
 
 from __future__ import annotations
@@ -38,37 +39,72 @@ class ElasticPolicy:
         return healthy >= self.min_healthy_fraction * total
 
 
+def map_with_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over ``tree``, keeping its structure. ``specs``
+    follows ``tree`` through dicts, lists and named tuples; a spec leaf (a
+    plain tuple: per array dim None, an axis name or a tuple of names, as a
+    ``PartitionSpec`` holds) where ``tree`` goes on applies to every leaf
+    below it (a prefix, as in JAX)."""
+    if isinstance(tree, dict):
+        return {k: map_with_specs(fn, tree[k], specs[k] if isinstance(specs, dict) else specs) for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        same = isinstance(specs, type(tree))
+        return type(tree)(*(map_with_specs(fn, getattr(tree, f), getattr(specs, f) if same else specs)
+                            for f in tree._fields))
+    if isinstance(tree, list):
+        return [map_with_specs(fn, t, specs[i] if isinstance(specs, list) else specs) for i, t in enumerate(tree)]
+    return fn(tree, tuple(specs))
+
+
 def reshard_for_mesh(tree, specs, mesh):
     """Place a host-resident checkpoint tree on ``mesh`` per ``specs``: each
     rank gets, on its device, the shard of every leaf that
     ``NamedSharding(mesh, spec)`` gives the device at its coordinates.
 
-    ``specs`` has ``tree``'s dict structure; a leaf's spec holds, per array
-    dim, None, an axis name or a tuple of names (the first major), as a
-    ``PartitionSpec`` does, and may be shorter than the array's rank. A spec
-    whose axes do not divide their dim raises ``ValueError``. Works for any
-    mesh whose axis sizes divide the named dims: the elastic restart path
-    (a checkpoint of one topology loaded on another)."""
+    ``specs`` has ``tree``'s structure (or a prefix of it,
+    :func:`map_with_specs`); a leaf's spec holds, per array dim, None, an
+    axis name or a tuple of names (the first major), as a ``PartitionSpec``
+    does, and may be shorter than the array's rank. Every shard is a new
+    tensor, never a view of ``tree``'s (a donated step may write into it). A spec whose axes do not
+    divide their dim raises ``ValueError``. Works for any mesh whose axis
+    sizes divide the named dims: the elastic restart path (a checkpoint of
+    one topology loaded on another)."""
 
     def put(x, spec):
         x = torch.as_tensor(x)
-        spec = tuple(spec)
-        if not validate_divisibility(tuple(x.shape), spec, mesh.shape):
-            raise ValueError(f"spec {spec} does not divide shape {tuple(x.shape)} over the mesh's {mesh.shape}")
+        _check_divides(tuple(x.shape), spec, mesh)
         for dim, names in enumerate(spec):
             if names is None:
                 continue
             names = names if isinstance(names, tuple) else (names,)
             size = x.shape[dim] // math.prod(mesh.shape[n] for n in names)
             x = x.narrow(dim, mesh.axis_index(names) * size, size)
-        return x.contiguous().to(mesh.device)
+        return x.to(mesh.device, copy=True, memory_format=torch.contiguous_format)  # never a view of the input
 
-    def walk(t, s):
-        if isinstance(t, dict):
-            return {k: walk(t[k], s[k]) for k in t}
-        return put(t, s)
+    return map_with_specs(put, tree, specs)
 
-    return walk(tree, specs)
+
+def gather_from_mesh(tree, specs, mesh):
+    """The inverse of :func:`reshard_for_mesh`: every rank's shards of
+    ``tree`` (placed by ``specs``) gathered back into whole tensors on this
+    rank's device (every rank returns the whole tree). A dim sharded over
+    several axes is gathered minor axis first."""
+
+    def whole(x, spec):
+        for dim, names in enumerate(spec):
+            if names is None:
+                continue
+            for name in reversed(names if isinstance(names, tuple) else (names,)):
+                if mesh.shape[name] > 1:
+                    x = torch.cat(mesh.all_gather(x.contiguous(), name), dim)
+        return x
+
+    return map_with_specs(whole, tree, specs)
+
+
+def _check_divides(shape: tuple[int, ...], spec, mesh) -> None:
+    if not validate_divisibility(shape, spec, mesh.shape):
+        raise ValueError(f"spec {tuple(spec)} does not divide shape {shape} over the mesh's {mesh.shape}")
 
 
 def reassign_data_shards(n_shards: int, healthy_ranks: list[int]) -> dict[int, list[int]]:

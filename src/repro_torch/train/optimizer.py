@@ -8,6 +8,12 @@ float32 ``m2`` and stores only the rounded one. The schedule and the bias
 corrections are float32 tensors, as ``jnp`` computes them (Python floats
 are float64 and differ in the last bit). The state mirrors the parameter
 tree, so it lives wherever each parameter lives.
+
+Under a mesh (``mesh`` and ``specs``: each leaf's ``PartitionSpec``-like
+spec) the leaves are a rank's shards and the clipping norm is global: a
+leaf's sum of squares is all-reduced over the axes it is sharded on, a
+replicated leaf counted once. The caller has summed any partial gradients
+(over the batch axes) before.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed.collectives import MeshAxes, axes_of
+from repro_torch.train.elastic import map_with_specs
 from repro_torch.utils import Tree, tree_global_norm, tree_leaves, tree_map, tree_unflatten
 
 
@@ -66,6 +74,25 @@ def schedule_lr(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
+def global_norm(grads: Tree, specs=None, mesh=None) -> torch.Tensor:
+    """``tree_global_norm`` of the whole tree whose shards ``grads`` holds
+    on this rank of ``mesh`` (``specs``: the leaves' specs, a prefix of the
+    tree as ``train.elastic.map_with_specs`` takes). The leaves' sums of
+    squares add in leaf order, so a mesh one rank wide gives
+    ``tree_global_norm``'s bits."""
+    if mesh is None or specs is None:
+        return tree_global_norm(grads)
+    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(grads)]
+    axes = tree_leaves(map_with_specs(lambda _, spec: ",".join(axes_of(spec)), grads, specs))
+    for key in dict.fromkeys(axes):
+        ax = MeshAxes(mesh, tuple(key.split(",")) if key else ())
+        idx = [i for i, a in enumerate(axes) if a == key]
+        if ax.size > 1:
+            for i, total in zip(idx, ax.sum(torch.stack([sq[i] for i in idx])).unbind()):
+                sq[i] = total
+    return torch.sqrt(sum(sq))
+
+
 #: elements per slice of a leaf's update: its float32 temporaries stay a
 #: few slices' worth, whatever the leaf's size (llama3.2-3b's stacked
 #: (28, 3072, 8192) leaves are 2.8 GB each)
@@ -73,7 +100,7 @@ _SLICE = 1 << 26
 
 
 def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState, params: Tree, *,
-                 donate: bool = False) -> tuple[Tree, AdamWState, dict]:
+                 donate: bool = False, mesh=None, specs=None) -> tuple[Tree, AdamWState, dict]:
     """One AdamW step. Returns (new_params, new_state, metrics) with
     metrics ``grad_norm`` (before clipping) and ``lr``, 0-dim tensors.
 
@@ -82,8 +109,10 @@ def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState, params: Tree,
     ``params`` and ``state`` (which must be contiguous), and those trees
     are returned: the reference's donated step, with no second copy of the
     state alive. Elementwise arithmetic is the same on any slice, so both
-    forms give the same bits."""
-    gnorm = tree_global_norm(grads)
+    forms give the same bits. ``mesh`` and ``specs`` make the clipping
+    norm global over a mesh's shards (:func:`global_norm`); ``mesh=None``
+    is the one-process update."""
+    gnorm = global_norm(grads, specs, mesh)
     scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
     step = state.step + 1
     lr = schedule_lr(cfg, step)

@@ -78,7 +78,8 @@ def value_and_grad(loss_fn: LossFn, params: Tree, batch) -> tuple[torch.Tensor, 
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, tree_unflatten(params, grads)
 
 
-def make_train_step(loss_fn: LossFn, tc: TrainConfig, *, donate: bool = False):
+def make_train_step(loss_fn: LossFn, tc: TrainConfig, *, donate: bool = False, sync=None, mesh=None,
+                    specs=None):
     """Returns step(state_tree, batch) -> (state_tree, metrics).
 
     With ``tc.microbatches > 1`` every leaf of ``batch`` has a leading
@@ -88,6 +89,13 @@ def make_train_step(loss_fn: LossFn, tc: TrainConfig, *, donate: bool = False):
     ``donate`` the step writes the new parameters and moments into the
     state's own tensors as the update reaches each leaf
     (``adamw_update(donate=True)``), and returns the same trees.
+
+    On one rank of a mesh the state holds the rank's shards (``specs``:
+    each leaf's spec, a prefix of the parameter tree): ``sync(loss,
+    grads) -> (loss, grads)`` completes the rank's partial loss and
+    gradients (sums over the batch or edge shards) before compression and
+    clipping, and the clipping norm is global (``adamw_update``'s
+    ``mesh``).
     """
 
     def step(state_tree: dict, batch):
@@ -105,6 +113,8 @@ def make_train_step(loss_fn: LossFn, tc: TrainConfig, *, donate: bool = False):
             metrics = {}
         else:
             loss, metrics, grads = value_and_grad(loss_fn, params, batch)
+        if sync is not None:
+            loss, grads = sync(loss, grads)
 
         new_ef = state_tree.get("ef_state")
         if tc.compression == "bf16":
@@ -113,7 +123,8 @@ def make_train_step(loss_fn: LossFn, tc: TrainConfig, *, donate: bool = False):
             qs, scales, new_ef = comp.compress_int8(grads, state_tree["ef_state"])
             grads = comp.decompress_int8(qs, scales)
 
-        new_params, new_opt, opt_metrics = adamw_update(tc.opt, grads, opt_state, params, donate=donate)
+        new_params, new_opt, opt_metrics = adamw_update(tc.opt, grads, opt_state, params, donate=donate,
+                                                        mesh=mesh, specs=specs)
         out = {"params": new_params, "opt_state": new_opt}
         if new_ef is not None:
             out["ef_state"] = new_ef

@@ -30,7 +30,11 @@ train step at each reduced config (the tolerances are in the tests).
 flash-ann segment build (``graph.segmented.build_segment``) equals the
 CPU's where the query tables agree; ``launch/steps``'s ``serve_bulk`` gives
 the CPU's top-100 ids except at near ties. The segment layer's mesh
-programs on two ranks sharing the card equal the single-process programs.
+programs on two ranks sharing the card equal the single-process programs;
+``flash_scan`` on a rank's row shard of the candidate codes equals its
+plain version; BERT4Rec's cells and the GNN steps on four ranks sharing
+the card (``launch/steps`` under a mesh) equal the one-process cells (the
+tolerances are in the tests).
 """
 
 from __future__ import annotations
@@ -938,3 +942,137 @@ def test_cuda_serve_bulk_equals_the_cpu(cuda_device):
         extra = ids_c[r].cpu().long()[~torch.isin(ids_c[r].cpu(), ids_p[r])]
         assert bool(((logits[r, extra] - s_p[r, -1]).abs() <= 1e-5).all()), r
     torch.testing.assert_close(s_c.cpu(), s_p, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,m", [(2, 16), (4, 16), (4, 5)])
+def test_cuda_flash_scan_on_a_rank_shard(cuda_device, ranks, m):
+    """``retrieval_cand`` across ranks scans each rank's contiguous row
+    shard of the candidate codes: every rank's shard (a view at its row
+    offset of 1,000,000 rows, M = 16; and M = 5, whose rows start off a
+    16-byte line) equals the plain version and the whole table's scan at
+    those rows."""
+    n, k = 1_000_000, 16
+    rng = np.random.default_rng(ranks + m)
+    codes = torch.from_numpy(rng.integers(0, k, (n, m)).astype(np.int32)).to(cuda_device)
+    adt = torch.from_numpy(rng.integers(0, 256, (m, k)).astype(np.int32)).to(cuda_device)
+    whole = tops.flash_scan(codes, adt)
+    rows = n // ranks
+    for r in range(ranks):
+        shard = codes.narrow(0, r * rows, rows)
+        before = tops.launches["flash_scan"]
+        got = tops.flash_scan(shard, adt)
+        torch.cuda.synchronize()
+        assert tops.launches["flash_scan"] == before + 1
+        assert torch.equal(got, tref.flash_scan(shard, adt)) and torch.equal(got, whole[r * rows:(r + 1) * rows])
+
+
+def _card_inputs(tmp_path, make) -> str:
+    import pickle
+
+    path = str(tmp_path / "inputs.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(make(), f)
+    return path
+
+
+@pytest.mark.cuda
+def test_cuda_recsys_cells_across_ranks_equal_one_process(cuda_device, tmp_path):
+    """BERT4Rec's four cells (``launch/steps``, reduced config, a 4,096-row
+    table, 3,000 candidates) on four ranks sharing the card over ``gloo``,
+    on (2, 2), (1, 2) and (2, 1) meshes, against the one-process cells on
+    the card from one set of weights: top-k ids equal but at near ties
+    (scores within 1e-5 of the k-th), scores and logits within atol 1e-4,
+    one train step's loss within rtol 1e-5, grad_norm within 1e-4 and every
+    leaf within 1e-4 of its largest magnitude (parameters 2·lr more)."""
+    import _mesh_steps_ranks as msr
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.recsys import bert4rec as b4r
+    from repro_torch.utils import tree_paths
+
+    def make():
+        cfg = msr.recsys_config()
+        rng = np.random.default_rng(1)
+        items = rng.integers(0, cfg.n_items, (msr.B, cfg.seq_len)).astype(np.int32)
+        serve = items.copy()
+        serve[:, -1] = cfg.mask_id
+        mask = rng.random(items.shape) < cfg.mask_prob
+        mask[:, -1] = True
+        return {"params": b4r.params_to_jax(b4r.Bert4Rec(cfg, torch.Generator().manual_seed(0), device="cpu")),
+                "items": items, "serve_items": serve, "mask": mask,
+                "codes": rng.integers(0, 16, (msr.N_CAND, 16)).astype(np.int32),
+                "adt": rng.integers(0, 256, (16, 16)).astype(np.int32)}
+
+    out = run_ranks(msr.recsys_cells, 4, _card_inputs(tmp_path, make), device="cuda", timeout=300)
+    one = out[0]["one_process"]
+    for rank in out:
+        for name, cells in rank["meshes"].items():
+            label = f"rank {rank['rank']} {name}"
+            np.testing.assert_allclose(cells["serve_p99"], one["serve_p99"], rtol=0, atol=1e-4, err_msg=label)
+            for (gi, gs), (wi, ws) in ((cells["serve_bulk"], one["serve_bulk"]),
+                                       (cells["retrieval_cand"][:2], one["retrieval_cand"][:2]),
+                                       (cells["retrieval_cand"][2:], one["retrieval_cand"][2:])):
+                gi, gs, wi, ws = (np.atleast_2d(x) for x in (gi, gs, wi, ws))
+                for r in range(gi.shape[0]):
+                    extra = gs[r][~np.isin(gi[r], wi[r])]
+                    assert (np.abs(extra - ws[r, -1]) <= 1e-5 * max(1.0, abs(ws[r, -1]))).all(), (label, r)
+                np.testing.assert_allclose(gs, ws, rtol=0, atol=1e-4, err_msg=label)
+            got, want = cells["train_batch"], one["train_batch"]
+            np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5, err_msg=label)
+            np.testing.assert_allclose(got["grad_norm"], want["grad_norm"], rtol=1e-4, err_msg=label)
+            for tree, extra in (("params", 2 * want["lr"]), ("mu", 0.0), ("nu", 0.0)):
+                wanted = dict(tree_paths(want[tree]))
+                for path, a in tree_paths(got[tree]):
+                    w = np.asarray(wanted[path], np.float64)
+                    assert float(np.abs(a - w).max()) <= 1e-4 * float(np.abs(w).max()) + extra, (label, tree, path)
+
+
+@pytest.mark.cuda
+def test_cuda_gnn_steps_across_ranks_equal_one_process(cuda_device, tmp_path):
+    """One train step of each GNN arch (reduced configs, 512 nodes, 2,048
+    edges, a receiver whose edges are all masked) on four ranks sharing the
+    card, edges sharded over (2, 2), (1, 2) and (2, 1) meshes, against the
+    one-process step on the card: the loss, grad_norm and every leaf within
+    1e-3 of its largest magnitude (parameters 2·lr more; index_add adds
+    with atomics on the card and GatedGCN's ReLUs flip under float32
+    noise, as in the card-against-CPU check)."""
+    import _mesh_steps_ranks as msr
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.gnn import common as gcm
+    from repro_torch.utils import tree_paths
+
+    def make():
+        out = {}
+        for i, arch in enumerate(msr.GNN_ARCHS):
+            cfg = msr.gnn_config(arch)
+            gen = torch.Generator().manual_seed(i)
+            g = gcm.random_graph_batch(gen, n_nodes=msr.GNN_NODES, n_edges=msr.GNN_EDGES, d_feat=8,
+                                       with_positions=arch != "gatedgcn", n_graphs=msr.GNN_GRAPHS, device="cpu")
+            g = gcm.pad_graph(g, msr.GNN_NODES, msr.GNN_EDGE_PAD)
+            nodes = g.nodes.clone()
+            nodes[:, 0] = nodes[:, 0].abs() * 3
+            graph = {"nodes": nodes.numpy(), "positions": None if g.positions is None else (g.positions * 0.3).numpy(),
+                     "edges": None, "senders": g.senders.numpy(), "receivers": g.receivers.numpy(),
+                     "node_mask": g.node_mask.numpy(), "edge_mask": (g.edge_mask & (g.receivers != 0)).numpy(),
+                     "graph_id": g.graph_id.numpy()}
+            labels = st._labels(cfg, msr.GNN_NODES, msr.GNN_GRAPHS, gen, torch.device("cpu")).numpy()
+            out[arch] = {"params": gcm.params_to_jax(st.gnn_init(cfg, gen, device="cpu")), "graph": graph,
+                         "labels": labels}
+        return out
+
+    out = run_ranks(msr.gnn_cells, 4, _card_inputs(tmp_path, make), device="cuda", timeout=300)
+    for arch in msr.GNN_ARCHS:
+        want = out[0]["one_process"][arch]
+        for rank in out:
+            for name, cells in rank["meshes"].items():
+                got, label = cells[arch], f"{arch} rank {rank['rank']} {name}"
+                for key in ("loss", "grad_norm"):
+                    np.testing.assert_allclose(got[key], want[key], rtol=1e-3, err_msg=label)
+                for tree, extra in (("params", 2 * want["lr"]), ("mu", 0.0), ("nu", 0.0)):
+                    wanted = dict(tree_paths(want[tree]))
+                    largest = max(float(np.abs(w).max()) for w in wanted.values())
+                    for path, a in tree_paths(got[tree]):
+                        w = np.asarray(wanted[path], np.float64)
+                        scale = largest if path == "['layers']/['attn']/['b1']" else float(np.abs(w).max())
+                        assert float(np.abs(a - w).max()) <= 1e-3 * scale + extra, (label, tree, path)
