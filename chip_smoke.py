@@ -219,7 +219,7 @@ non-zero and no result line is printed):
             ``lm_batch`` data at S = 4,096 (``train_4k``), seeded random
             weights, bf16 compute, remat on, ``lm_opt_cfg``'s moments, lr
             3e-4 constant after 2 warm-up steps, 8 steps: llama3.2-3b (28
-            layers, B 1), qwen1.5-0.5b (24 layers, 2 microbatches of 2),
+            layers, B 1), qwen1.5-0.5b (24 layers, 2 microbatches of 1),
             moonshot-v1-16b-a3b cut to 5 layers (1 dense + 4 MoE) and
             deepseek-v3-671b cut to its 3 dense MLA layers and the MTP
             block (B 1 each). Per config: s per step (median of steps
@@ -319,6 +319,28 @@ non-zero and no result line is printed):
             GNNs' as phase 15's; one-process and per-rank seconds, the
             ranks' start-up, the bytes ``COMM`` counted, ``flash_scan``'s
             launches and ms a rank, beside the card's name and power limit.
+17c. mesh_lm  LM serving across two ranks sharing the card over ``gloo``
+            on a (data 1, model 2) mesh (``build_bundle``'s prefill and
+            decode bundles under a mesh: heads, hidden columns, experts and
+            the vocabulary over ``"model"``, the MoE expert-parallel with an
+            ``all_to_all`` pair a layer, the caches' sequence over
+            ``"model"``): moonshot-v1-16b-a3b at full width, depth 4 (the
+            dense first layer and 3 MoE layers), seeded random weights,
+            bf16: a prefill of B 2 × S 2,048 (4,096 tokens, 2,048 a rank
+            through the ep branch), a prefill of B 8 × S 512 whose caches a
+            batched decode continues for 4 greedy steps (4 tokens a rank
+            through the ep branch), and a long-context decode of 4 steps at
+            B 1 from its first row (the scatter branch over each rank's 32
+            experts, the cache's sequence over both ranks). Each cell is
+            held against the same cell in one process (the first rank runs
+            it, its MoE as two ranks compute it): a float32 copy at depth 2
+            within 1e-4 of the largest |logit|, then every bf16 argmax
+            equal except at near ties, each printed with its margin. Per
+            cell: seconds in one process and on each rank, ``COMM`` by kind
+            (the ``all_to_all`` bytes apart, above 0 on every rank in the
+            prefill and the batched decode), staged bytes, each rank's
+            start-up and peak memory, beside the card's name and power
+            limit. No kernel of the repo runs here.
 18. examples  ``examples/torch_quickstart.py``,
             ``torch_distributed_build.py`` (1,000 rows in 2 segments on 2
             ranks, ``--seg-size 250 --ranks 2``) and ``torch_retrieval_serving.py``, each
@@ -2532,7 +2554,7 @@ def lm_serving_path(dev, t_start: float) -> None:
 #: depth, rows per microbatch, microbatches)
 LM_TRAIN_CELLS = (
     ("llama3.2-3b", None, 1, 1),
-    ("qwen1.5-0.5b", None, 2, 2),
+    ("qwen1.5-0.5b", None, 1, 2),
     ("moonshot-v1-16b-a3b", 5, 1, 1),
     ("deepseek-v3-671b", 3, 1, 1),
 )
@@ -4411,6 +4433,266 @@ def mesh_steps_path(dev, smi: str, t_start: float) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# LM serving across ranks (phase 17c)
+# ---------------------------------------------------------------------------
+
+#: moonshot-v1-16b-a3b at full width on a (data 1, model MESH_LM_RANKS) mesh
+#: of ranks sharing the card over gloo, depth 4 of 48 (the dense first layer
+#: and 3 MoE layers), bf16 (PERF.md §4)
+MESH_LM_RANKS = 2
+MESH_LM_ARCH = "moonshot-v1-16b-a3b"
+MESH_LM_DEPTH = 4
+MESH_LM_SEED = 0
+MESH_LM_PREFILL = (2, 2048)  # B × S: 4,096 tokens, 2,048 a rank through the ep branch
+MESH_LM_DECODE = (8, 512, 4)  # a prefill of B × S, then decode steps: 4 tokens a rank through the ep branch
+MESH_LM_LONG = 4  # long-context decode steps at B 1 (the scatter branch), from that prefill's first row
+MESH_LM_WARMUP = 64  # tokens a row of the untimed warm-up prefill before each side's timed cells
+#: the float32 copy held within tests/test_torch_mesh_lm.py's bounds: full
+#: width, depth 2 (the dense layer and one MoE layer), smaller cells
+MESH_LM_F32 = {"depth": 2, "prefill": (2, 256), "decode": (8, 64, 2), "long": 2}
+MESH_LM_REL = 1e-4  # logits within 1e-4 of the largest |logit|
+MESH_LM_F32_TIE = 1e-4  # a float32 near tie: a top-2 margin below this
+MESH_LM_TIE = LM_DECODE_ATOL  # a bf16 near tie: a top-2 margin below the bf16 decode bound
+
+
+def moe_on_chunks(n_dev: int, ep: int):
+    """``moe_forward`` as a mesh of ``n_dev`` ranks (``ep`` of them on the
+    expert axis) computes it, in one process: where the reference's ep
+    branch runs (tokens that divide over the ranks, no fewer than them),
+    each rank's chunk of the tokens is routed and scattered on its own at
+    the per-device capacity (the exchange moves those buffers and changes
+    nothing); elsewhere the global capacity-scatter. The one-process side
+    of phase 17c's checks."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.layers import mlp_forward
+
+    def forward(p, x, cfg, *, mesh=None, token_axes=()):
+        b, s, d = x.shape
+        flat = x.reshape(b * s, d)
+        n = flat.shape[0]
+        if cfg.impl != "ep" or n % n_dev or n < n_dev:
+            return moe.moe_forward(p, x, cfg)
+        n_loc = n // n_dev
+        c = max(int(np.ceil(n_loc * cfg.top_k / cfg.n_experts * cfg.capacity_factor)), 1)
+        c = -(-c // ep) * ep
+        outs = []
+        for i in range(n_dev):
+            chunk = flat[i * n_loc:(i + 1) * n_loc]
+            w, idx, aux = moe._route(p, chunk, cfg)
+            outs.append(moe._dispatch_scatter(chunk, w, idx, p, cfg, c))
+        out = torch.cat(outs)
+        if cfg.n_shared:
+            out = out + mlp_forward(p["shared"], flat)
+        return out.reshape(b, s, d), aux
+
+    return forward
+
+
+def argmax_check(got, want, tie: float, what: str) -> dict:
+    """Rows whose argmax differs, each with the one-process top-2 margin;
+    one that differs where the margin is not below ``tie`` fails."""
+    top2 = want.topk(2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    differ = (got.argmax(-1) != want.argmax(-1)).nonzero().flatten().tolist()
+    out = {"rows": int(want.shape[0]), "argmax_differs": [{"row": r, "margin": margins[r]} for r in differ],
+           "max_abs_diff": float((got - want).abs().max()), "min_margin": min(margins)}
+    if any(margins[r] >= tie for r in differ) or not bool(got.isfinite().all()):
+        raise AssertionError(f"{what}: argmax differs beyond a near tie, or logits not finite: {out}")
+    return out
+
+
+def mesh_lm_rank(world, smi: str) -> list:
+    """Phase 17c on one rank (module level: ``run_ranks`` pickles it):
+    ``MESH_LM_ARCH`` at full width served through ``launch/steps``' prefill
+    and decode bundles on a (data 1, model ``MESH_LM_RANKS``) mesh over the
+    ranks (heads, hidden columns, experts and the vocabulary over
+    ``"model"``; the caches' sequence over ``"model"``, over every axis in
+    long context), each cell held against the same cell in one process,
+    which the first rank runs first from the same weights (every rank draws
+    them from one seeded card generator), its MoE as the mesh computes it
+    (``moe_on_chunks``). Cells: a prefill; a prefill whose caches, gathered
+    and padded, a batched decode continues for some greedy steps; a
+    long-context decode at B 1 from that prefill's first row. The mesh's
+    decode steps take the tokens the one-process steps took. First a
+    float32 copy at depth 2, held within ``MESH_LM_REL``; then the bf16
+    cells at depth ``MESH_LM_DEPTH``, every argmax equal but at near ties
+    (``MESH_LM_TIE``). Each cell's seconds in one process and on each rank,
+    ``COMM`` by kind, peak memory. Returns every rank's readings."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs.registry import ShapeSpec, get_arch
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.elastic import gather_from_mesh, reshard_for_mesh
+    from repro_torch.utils import sync, tree_bytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = world.device
+    mesh = lm.Mesh({"data": 1, "model": world.size}, range(world.size), dev)
+    first = mesh.index == 0
+    out = {"rank": mesh.index, "coords": mesh.coords, "backend": str(torch.distributed.get_backend()),
+           **world.launch}
+
+    def timed(fn, barrier: bool):
+        """fn() to a synchronized end: (result, seconds, COMM)."""
+        lm.reset_comm()
+        if barrier:
+            mesh.barrier()
+        sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        return res, time.perf_counter() - t0, dict(lm.COMM)
+
+    def padded(caches, s_max: int):
+        return {k: torch.cat([c, c.new_zeros((*c.shape[:2], s_max - c.shape[2], *c.shape[3:]))], 2)
+                for k, c in caches.items()}
+
+    def run(cfg, weights, toks_p, toks_d, n_dec: int, n_long: int, m=None, given=None):
+        """The cells on ``m`` (None: one process) from ``weights`` (this
+        rank's shards on a mesh): {cell: (logits, seconds, COMM) lists}
+        and the tokens each decode step took (its own greedy ones unless
+        ``given``)."""
+        s_d = toks_d.shape[1]
+        s_max = s_d + max(n_dec, n_long)
+
+        def shape(kind, name, b, s):
+            return ShapeSpec(name, kind, {"global_batch": b, "seq_len": s})
+
+        def place(x, spec):
+            return x if m is None else reshard_for_mesh(x, spec, m)
+
+        pre = steps.lm_prefill_bundle(cfg, shape("prefill", "prefill_32k", *toks_p.shape), m)
+        pre_d = steps.lm_prefill_bundle(cfg, shape("prefill", "prefill_32k", *toks_d.shape), m)
+        warm = toks_p[:, :MESH_LM_WARMUP]  # a first call's costs stay out of the timed ones
+        warm_pre = steps.lm_prefill_bundle(cfg, shape("prefill", "prefill_32k", *warm.shape), m)
+        timed(lambda: warm_pre.fn(weights, place(warm, m and warm_pre.in_specs[1])), m is not None)
+        got, fed = {}, {}
+        (lg, _), s, comm = timed(lambda: pre.fn(weights, place(toks_p, m and pre.in_specs[1])), m is not None)
+        got["prefill"] = ([lg], [s], [comm])
+        (lg, caches), s, comm = timed(lambda: pre_d.fn(weights, place(toks_d, m and pre_d.in_specs[1])),
+                                      m is not None)
+        got["decode_prefill"] = ([lg], [s], [comm])
+        first_token = lg.argmax(-1).to(torch.int32)
+        caches = padded(caches if m is None else gather_from_mesh(caches, pre_d.out_specs[1], m), s_max)
+        for cell, name, rows, n in (("decode", "decode_32k", toks_d.shape[0], n_dec), ("long", "long_500k", 1, n_long)):
+            bundle = steps.lm_decode_bundle(cfg, shape("decode", name, rows, s_max), m)
+            c = place({k: v[:, :rows].clone() for k, v in caches.items()}, m and bundle.in_specs[1])
+            token = first_token[:rows]
+            got[cell], fed[cell] = ([], [], []), []
+            for i in range(n):
+                if given is not None:
+                    token = given[cell][i].to(dev)
+                fed[cell].append(token.cpu())
+                (lg, c), s, comm = timed(lambda: bundle.fn(weights, c, place(token, m and bundle.in_specs[2]),
+                                                           torch.tensor(s_d + i, device=dev)), m is not None)
+                for part, x in zip(got[cell], (lg, s, comm)):
+                    part.append(x)
+                token = lg.argmax(-1).to(torch.int32)
+            del c
+        return got, fed
+
+    def cells(depth: int, dtype, prefill, decode, n_long: int, tie: float, rel: float | None):
+        """The three cells at ``depth``, one process then the mesh, held
+        against each other: argmax but at near ties (``tie``), and the
+        logits within ``rel`` of the largest where it is given."""
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(MESH_LM_ARCH).make_full(), n_layers=depth, dtype=dtype)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(MESH_LM_SEED)
+        params = tfm.serving_params(tfm.init_lm(gen, cfg, device=dev), cfg)
+        toks_p = torch.randint(0, cfg.vocab, prefill, generator=gen, device=dev, dtype=torch.int32)
+        toks_d = torch.randint(0, cfg.vocab, decode[:2], generator=gen, device=dev, dtype=torch.int32)
+        local = reshard_for_mesh(params, tfm.lm_param_specs(cfg), mesh)
+        sync(dev)
+        res = {"params_gb_whole": tree_bytes(params) / 1e9, "params_gb_rank": tree_bytes(local) / 1e9,
+               "init_s": time.perf_counter() - t0}
+        mesh.barrier()
+        t0 = time.perf_counter()
+        one = given = None
+        if first:
+            with mock.patch.object(tfm, "moe_forward", moe_on_chunks(mesh.size, mesh.shape["model"])):
+                one, given = run(cfg, params, toks_p, toks_d, decode[2], n_long)
+        del params
+        given = mesh.broadcast_object(given)
+        res["one_process_section_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, _ = run(cfg, local, toks_p, toks_d, decode[2], n_long, mesh, given)
+        res["mesh_section_s"] = time.perf_counter() - t0
+        for cell, (logits, secs, comms) in got.items():
+            entry = {"rank_s": secs, "comm": comms}
+            if first:
+                entry["one_process_s"] = one[cell][1]
+                entry["check"] = []
+                for i, (g, w) in enumerate(zip(logits, one[cell][0])):
+                    chk = argmax_check(g, w, tie, f"{dtype} {cell}[{i}]")
+                    if rel is not None:
+                        chk["bound"] = rel * float(w.abs().max())
+                        if not chk["max_abs_diff"] <= chk["bound"]:
+                            raise AssertionError(f"{dtype} {cell}[{i}]: logits differ beyond the bound: {chk}")
+                    entry["check"].append(chk)
+            res[cell] = entry
+        if dev.type == "cuda":
+            res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            torch.cuda.reset_peak_memory_stats(dev)
+        return res
+
+    # a fresh process's first meta tensor costs seconds: every rank
+    # builds a bundle now, at once, rather than each in turn below
+    t0 = time.perf_counter()
+    steps.lm_prefill_bundle(get_arch(MESH_LM_ARCH).make_full(), ShapeSpec("prefill_32k", "prefill", {
+        "global_batch": 1, "seq_len": 8}), mesh)
+    out["meta_warmup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f32 = MESH_LM_F32
+    out["float32"] = cells(f32["depth"], torch.float32, f32["prefill"], f32["decode"], f32["long"],
+                           MESH_LM_F32_TIE, MESH_LM_REL)
+    out["float32"]["s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["bf16"] = cells(MESH_LM_DEPTH, torch.bfloat16, MESH_LM_PREFILL, MESH_LM_DECODE, MESH_LM_LONG,
+                        MESH_LM_TIE, None)
+    out["bf16"]["s"] = time.perf_counter() - t0
+    every = [None] * mesh.size
+    torch.distributed.all_gather_object(every, out)
+    return every
+
+
+def mesh_lm_path(dev, smi: str, t_start: float) -> None:
+    """Phase 17c: LM serving across ``MESH_LM_RANKS`` ranks sharing the card
+    over ``gloo`` (``mesh_lm_rank``). Prints each cell's one-process and
+    per-rank seconds, ``COMM`` by kind (the ``all_to_all`` bytes apart) and
+    staged bytes, the ranks' start-up and peak memory, the float32 check
+    and the bf16 argmax checks with their margins, beside the card's name
+    and power limit. The prefill and the batched decode must have sent
+    ``all_to_all`` bytes on every rank. No kernel of the repo runs here."""
+    import torch
+
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_ranks(mesh_lm_rank, MESH_LM_RANKS, smi, device=dev, timeout=300)
+    for r in ranks:
+        for part in ("float32", "bf16"):
+            sent = {cell: sum(c["all_to_all_bytes"] for c in r[part][cell]["comm"]) for cell in ("prefill", "decode")}
+            if min(sent.values()) <= 0:
+                raise AssertionError(f"rank {r['rank']} of mesh_lm ({part}) sent no all_to_all bytes: {sent}")
+    emit({"phase": "mesh_lm", "card": smi, "arch": MESH_LM_ARCH, "depth": MESH_LM_DEPTH, "ranks": MESH_LM_RANKS,
+          "mesh": {"data": 1, "model": MESH_LM_RANKS}, "backend": ranks[0]["backend"],
+          "sizes": {"prefill": MESH_LM_PREFILL, "decode": MESH_LM_DECODE, "long": MESH_LM_LONG,
+                    "float32": MESH_LM_F32},
+          "per_rank": ranks, "phase_s": time.perf_counter() - t_phase, "elapsed_s": time.perf_counter() - t_start})
+
+
 #: the examples and the arguments the smoke gives them: the distributed
 #: example's 1,000 rows (from 8,000, then 2,000; its program runs at the
 #: paper's width in phase 16 (a); PERF.md §4) in two segments on two ranks
@@ -4676,6 +4958,9 @@ def main() -> int:
 
     # ---- 17b. the recsys and GNN step bundles across ranks ----------------------
     mesh_step_launches = mesh_steps_path(dev, smi, t_start)
+
+    # ---- 17c. LM serving across ranks -------------------------------------------
+    mesh_lm_path(dev, smi, t_start)
 
     # ---- 18. the examples -------------------------------------------------------
     ex_launches = examples_path(dev, t_start)

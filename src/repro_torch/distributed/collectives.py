@@ -18,6 +18,8 @@ that share this rank's coordinates off those axes form its group. On it:
   no gradient (a softmax's shift, a count, a metric).
 * :meth:`MeshAxes.sum_leaves` — one all-reduce (sum) of many tensors
   flattened into one buffer (partial gradients).
+* :meth:`MeshAxes.all_to_all` — the block exchange of the expert-parallel
+  MoE and of the prefill's caches (``Mesh.all_to_all``), forward only.
 
 On a group one rank wide every one of them returns its input itself, with
 no rendezvous, so a 1-wide mesh computes what no mesh computes, bit for
@@ -63,6 +65,13 @@ class MeshAxes:
         """Every member's ``t`` concatenated along ``dim`` in shard order (no
         gradient)."""
         return t if self.size == 1 else torch.cat(self.mesh.all_gather(t, self.axes), dim)
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """Block j of ``t`` (size, ...) to the member at shard j; block i of
+        the result from the member at shard i. Serving needs no gradient of
+        it and none is carried: its backward, the reverse exchange, comes
+        with LM training across ranks (ROADMAP queue 1, item 7.7)."""
+        return t if self.size == 1 else self.mesh.all_to_all(t, self.axes)
 
     def sum_leaves(self, leaves: list) -> list:
         """The all-reduced sums of ``leaves`` (float32 tensors), through one

@@ -49,15 +49,17 @@ _RANK_DEVICE: torch.device | None = None
 
 #: the collectives' traffic in this process, read by the smoke and the
 #: example: gathers made, bytes received by them, and seconds spent in
-#: them; all-reduces made, bytes each contributed, and seconds; bytes
-#: copied through the host for a ``gloo`` group on the card (both kinds)
+#: them; all-reduces made, bytes each contributed, and seconds;
+#: all-to-alls made, bytes each sent (its own block included), and
+#: seconds; bytes copied through the host for a ``gloo`` group on the card
+#: (every kind)
 COMM = {"gathers": 0, "gathered_bytes": 0, "gather_s": 0.0, "reduces": 0, "reduced_bytes": 0, "reduce_s": 0.0,
-        "staged_bytes": 0}
+        "all_to_alls": 0, "all_to_all_bytes": 0, "all_to_all_s": 0.0, "staged_bytes": 0}
 
 
 def reset_comm() -> None:
     COMM.update(gathers=0, gathered_bytes=0, gather_s=0.0, reduces=0, reduced_bytes=0, reduce_s=0.0,
-                staged_bytes=0)
+                all_to_alls=0, all_to_all_bytes=0, all_to_all_s=0.0, staged_bytes=0)
 
 
 def _world() -> tuple[int, int]:
@@ -202,6 +204,38 @@ class Mesh:
         COMM["reduced_bytes"] += buf.nbytes
         COMM["reduce_s"] += time.perf_counter() - t0
         return buf
+
+    def all_to_all(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The exchange of blocks along ``axes``: ``t`` (G, ...) with G the
+        group's size; block j goes to the member at position j of
+        :meth:`members`, and block i of the result (G, ...) is the one that
+        member i sent here (``jax.lax.all_to_all`` with ``split_axis =
+        concat_axis = 0``, tiled). A new tensor on this rank's device; ``t``
+        itself where the group is one rank wide. A ``gloo`` group on the
+        card goes through the host, as in :meth:`all_gather` (counted in
+        ``COMM["staged_bytes"]``). No gradient is carried."""
+        members = self.members(axes)
+        if len(members) == 1:
+            return t
+        if t.shape[0] != len(members):
+            raise ValueError(f"all_to_all over {len(members)} ranks takes {len(members)} blocks, got {t.shape[0]}")
+        g = self.group(axes)
+        t0 = time.perf_counter()
+        staged = t.device.type == "cuda" and dist.get_backend(g) == "gloo"
+        # the process group orders its members by group rank
+        order = torch.tensor([dist.get_group_rank(g, m) for m in members])
+        src = torch.empty_like(t, device="cpu" if staged else t.device, memory_format=torch.contiguous_format)
+        src[order.to(src.device)] = t.detach().to(src.device)
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=g)
+        out = out[order.to(out.device)]
+        if staged:
+            out = out.to(t.device)
+            COMM["staged_bytes"] += 2 * src.nbytes
+        COMM["all_to_alls"] += 1
+        COMM["all_to_all_bytes"] += src.nbytes
+        COMM["all_to_all_s"] += time.perf_counter() - t0
+        return out
 
     def broadcast_object(self, obj):
         """``obj`` from the mesh's first rank to every rank (pickled,

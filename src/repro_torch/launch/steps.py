@@ -21,8 +21,12 @@ collectives GSPMD inserts into the reference's programs are written out
 columns) with sessions over the batch axes; ``retrieval_cand`` runs one
 ``flash_scan`` per rank over its rows of the candidate codes. A GNN step
 shards the edges over the batch axes and ``"model"`` and replicates the
-nodes (``shard_graph``). The LM cells' shardings wait for ROADMAP queue 1,
-items 7.1–7.2.
+nodes (``shard_graph``). The LM prefill and decode cells of the GQA models
+are tensor- and expert-parallel over ``"model"`` with the batch over the
+batch axes and the caches' sequence over ``"model"`` (decode below a batch
+of 8: over every axis), as ``transformer.LMShards`` runs them; an LM train
+cell under a mesh is ROADMAP queue 1, item 7.7, an MLA model's cells item
+7.8.
 
 The FLOPs are the reference's analytic counts: 6·N_active per trained
 token, 2·N_active per prefilled token, a decode step's 2·N_active per
@@ -43,6 +47,7 @@ from repro_torch.configs.registry import ShapeSpec, get_arch
 from repro_torch.distributed.collectives import MeshAxes
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import batch_axes
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
 from repro_torch.models.gnn import egnn, equiformer_v2, gatedgcn, nequip
 from repro_torch.models.gnn.common import GraphBatch, edge_param_leaves, pad_graph, random_graph_batch
@@ -170,25 +175,72 @@ def lm_train_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec) -> StepBundle:
     )
 
 
-def lm_prefill_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec) -> StepBundle:
-    """(params, tokens) -> (last logits, caches) (``launch/steps.py:140-165``)."""
+def fix_axes(spec: tuple, mesh) -> tuple:
+    """``spec`` without the axes ``mesh`` lacks (one pod: no ``"pod"``); a
+    tuple of names keeps the names it has, or becomes None
+    (``_fix_axes``, ``launch/steps.py:169-181``)."""
+    fixed = []
+    for entry in spec:
+        if isinstance(entry, tuple):
+            kept = tuple(a for a in entry if a in mesh.axis_names)
+            fixed.append(kept or None)
+        else:
+            fixed.append(entry if entry is None or entry in mesh.axis_names else None)
+    return tuple(fixed)
+
+
+def _lm_cache_specs(caches: dict, lead: tuple) -> dict:
+    """Every cache (L, B, S, …) by ``lead`` over its first three dims."""
+    return {k: lead + (None,) * (v.ndim - 3) for k, v in caches.items()}
+
+
+def lm_prefill_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec, mesh=None) -> StepBundle:
+    """(params, tokens) -> (last logits, caches) (``launch/steps.py:140-165``).
+    Under ``mesh``: parameters by ``lm_param_specs``, tokens by rows over
+    the batch axes, the logits whole on every rank and the caches (L, B,
+    S, …) with the batch over the batch axes and the sequence over
+    ``"model"``."""
     b, s = shape.dims["global_batch"], shape.dims["seq_len"]
+    args = (_init_meta(tfm.init_lm, cfg), _meta((b, s), torch.int32))
+    if mesh is None:
+        return StepBundle(f"{cfg.name}:prefill", lambda params, tokens: tfm.lm_prefill(params, cfg, tokens), args,
+                          model_flops=lm_prefill_flops(cfg, b, s))
+    tfm.require_gqa(cfg, shape.name)
+    ba = batch_axes(mesh)
+    shards = tfm.LMShards(mesh)
+    caches = tfm.make_caches(cfg, b, s, device="meta")
     return StepBundle(
-        f"{cfg.name}:prefill", lambda params, tokens: tfm.lm_prefill(params, cfg, tokens),
-        (_init_meta(tfm.init_lm, cfg), _meta((b, s), torch.int32)), model_flops=lm_prefill_flops(cfg, b, s),
+        f"{cfg.name}:prefill", lambda params, tokens: tfm.lm_prefill(params, cfg, tokens, shards=shards), args,
+        model_flops=lm_prefill_flops(cfg, b, s), in_specs=(tfm.lm_param_specs(cfg), (ba, None)),
+        out_specs=((), _lm_cache_specs(caches, (None, ba, "model"))),
     )
 
 
-def lm_decode_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec) -> StepBundle:
+def lm_decode_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec, mesh=None) -> StepBundle:
     """(params, caches, token, pos) -> (logits, caches written in place)
-    (``launch/steps.py:183-233``)."""
+    (``launch/steps.py:183-233``). Under ``mesh``: batched decode (a batch
+    of 8 or more) puts the batch over the batch axes and the caches'
+    sequence over ``"model"``; long context puts the sequence over every
+    axis and gives every rank every token; the logits come back whole."""
     b, s_max = shape.dims["global_batch"], shape.dims["seq_len"]
     caches = tfm.make_caches(cfg, b, s_max, device="meta")
+    args = (_init_meta(tfm.init_lm, cfg), caches, _meta((b,), torch.int32), _meta((), torch.int32))
+    if mesh is None:
+        return StepBundle(
+            f"{cfg.name}:decode",
+            lambda params, caches, token, pos: tfm.lm_decode_step(params, cfg, caches, token, pos), args,
+            donate=(1,), model_flops=lm_decode_flops(cfg, b, s_max),
+        )
+    tfm.require_gqa(cfg, shape.name)
+    long_ctx = b < 8
+    ba = batch_axes(mesh)
+    shards = tfm.LMShards(mesh, long_context=long_ctx)
+    cache_sp = _lm_cache_specs(caches, (None, None, mesh.axis_names) if long_ctx else (None, ba, "model"))
     return StepBundle(
         f"{cfg.name}:decode",
-        lambda params, caches, token, pos: tfm.lm_decode_step(params, cfg, caches, token, pos),
-        (_init_meta(tfm.init_lm, cfg), caches, _meta((b,), torch.int32), _meta((), torch.int32)),
-        donate=(1,), model_flops=lm_decode_flops(cfg, b, s_max),
+        lambda params, caches, token, pos: tfm.lm_decode_step(params, cfg, caches, token, pos, shards=shards),
+        args, donate=(1,), model_flops=lm_decode_flops(cfg, b, s_max),
+        in_specs=(tfm.lm_param_specs(cfg), cache_sp, () if long_ctx else (ba,), ()), out_specs=((), cache_sp),
     )
 
 
@@ -497,7 +549,7 @@ def bert4rec_retrieval_step(cfg: b4r.Bert4RecConfig, n_cand: int, *, k: int = BU
     ``n_cand`` and runs ``flash_scan`` over its own code rows (the 4·k
     lowest, ids offset by its code row base); the ranks' lists are merged
     (:func:`merge_top`) and the 4·k candidates' rows gathered from the
-    ranks that own them (``bert4rec.lookup``)."""
+    ranks that own them (``layers.vocab_lookup``)."""
 
     @torch.no_grad()
     def retrieval_step(params, items, codes, adt):
@@ -509,7 +561,7 @@ def bert4rec_retrieval_step(cfg: b4r.Bert4RecConfig, n_cand: int, *, k: int = BU
         est = ops.flash_scan(codes.to(table.device), adt.to(table.device))  # this rank's code rows
         _, idx_f = merge_top(*_local_top(-est.to(torch.float32)[None], 4 * k, b4r.row_base(codes, tp)), 4 * k, tp)
         idx_f = idx_f[0]
-        top_f, j = topk_first(b4r.lookup(table, idx_f, tp) @ q[0], k)
+        top_f, j = topk_first(L.vocab_lookup(table, idx_f, tp) @ q[0], k)
         return idx_d.to(torch.int32), top_d, idx_f[j].to(torch.int32), top_f
 
     return retrieval_step
@@ -578,8 +630,10 @@ def build_bundle(arch_id: str, shape_name: str, *, reduced: bool = False, cfg_ov
     are a segment build and a search, not steps. ``device`` is checked
     (``resolve_device``); the caller makes the inputs there. ``mesh``: the
     cell on one rank of a ``launch.mesh.Mesh``, with its shardings (module
-    docstring); an LM cell under a mesh raises ``NotImplementedError``.
-    ``microbatches`` splits BERT4Rec's train step."""
+    docstring).
+    ``microbatches`` splits BERT4Rec's train step; under a mesh an LM
+    train cell and any cell of an MLA model raise ``NotImplementedError``
+    naming their ROADMAP items (7.7, 7.8)."""
     resolve_device(device)
     arch = get_arch(arch_id)
     shape = next(s for s in arch.shapes if s.name == shape_name)
@@ -587,12 +641,14 @@ def build_bundle(arch_id: str, shape_name: str, *, reduced: bool = False, cfg_ov
     if cfg_override:
         cfg = dataclasses.replace(cfg, **cfg_override)
     if arch.family == "lm":
-        if mesh is not None:
-            raise NotImplementedError(
-                f"{arch_id}:{shape_name} under a mesh: the LM shardings (lm_param_specs, cache_specs, expert-parallel "
-                "MoE) are not ported yet (ROADMAP queue 1, items 7.1-7.2)")
-        make = {"train": lm_train_bundle, "prefill": lm_prefill_bundle, "decode": lm_decode_bundle}[shape.kind]
-        return make(cfg, shape)
+        if mesh is None:
+            make = {"train": lm_train_bundle, "prefill": lm_prefill_bundle, "decode": lm_decode_bundle}[shape.kind]
+            return make(cfg, shape)
+        tfm.require_gqa(cfg, shape.name)
+        if shape.kind == "train":
+            raise NotImplementedError(f"{arch_id}:{shape_name} under a mesh: LM training across ranks is not "
+                                      "ported (ROADMAP queue 1, item 7.7)")
+        return {"prefill": lm_prefill_bundle, "decode": lm_decode_bundle}[shape.kind](cfg, shape, mesh)
     if arch.family == "gnn":
         return gnn_train_bundle(arch_id, cfg, shape, mesh)
     if arch.family == "recsys":

@@ -175,6 +175,44 @@ def _qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, n_heads: int, n_kv: 
     return q, k, v.reshape(b, s, n_kv, head_dim)
 
 
+def reduce_partial(tp, t: torch.Tensor) -> torch.Tensor:
+    """``tp.reduce_from`` of a rank's partial sums, added in float32 and
+    rounded to ``t``'s dtype once (float32 partials are summed as they
+    are)."""
+    return tp.reduce_from(t.to(torch.float32)).to(t.dtype)
+
+
+def vocab_lookup(table: torch.Tensor, ids: torch.Tensor, tp=None) -> torch.Tensor:
+    """``table[ids]`` where ``table`` is this rank's row shard of a
+    vocabulary over ``tp``: each rank looks up the ids in its rows and
+    gives zeros for the rest, and the ranks' rows are summed
+    (``reduce_from``; one term is not zero, so the sum is exact)."""
+    if tp is None or tp.size == 1:
+        return table[ids]
+    local = ids - tp.index * table.shape[0]
+    own = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(own, local, 0)]
+    return tp.reduce_from(torch.where(own[..., None], rows, 0.0))
+
+
+def _heads_on(tp, n_heads: int, n_kv: int) -> tuple[int, bool]:
+    """(query heads a rank of ``tp`` holds, whether its k/v columns are
+    whole heads). Query heads that do not divide raise ``ValueError``."""
+    if n_heads % tp.size:
+        raise ValueError(f"{n_heads} query heads do not divide over {tp.size} ranks")
+    return n_heads // tp.size, n_kv % tp.size == 0
+
+
+def _gather_columns(tp, *ts: torch.Tensor) -> list[torch.Tensor]:
+    """Each of ``ts`` (…, this rank's columns) with every rank's columns in
+    shard order (…, all of them): one all-gather for all of them."""
+    if tp.size == 1:
+        return list(ts)
+    widths = [t.shape[-1] for t in ts]
+    parts = [part.split(widths, -1) for part in tp.mesh.all_gather(torch.cat(ts, -1).contiguous(), tp.axes)]
+    return [torch.cat([part[i] for part in parts], -1) for i in range(len(ts))]
+
+
 def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
                 rope_theta: float = 10000.0, block_q: int | None = None, causal: bool = True,
                 tp=None) -> torch.Tensor:
@@ -193,17 +231,41 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: i
     q, k, v = _qkv(p, x, positions, n_heads, n_kv, head_dim, rope_theta)
     out = attend(q, k, v, causal=causal, block_q=block_q)
     out = matmul(out.reshape(b, s, n_heads * head_dim), p["wo"])
-    return out if tp is None else tp.reduce_from(out)
+    return out if tp is None else reduce_partial(tp, out)
 
 
 def gqa_prefill(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
-                rope_theta: float, block_q: int | None = None):
+                rope_theta: float, block_q: int | None = None, tp=None):
     """Causal ``gqa_forward`` that also returns the cache contents: (out
-    (B, S, D), (k, v) each (B, S, Kv, hd), k rotated)."""
+    (B, S, D), (k, v) each (B, S, Kv, hd), k rotated).
+
+    ``tp`` splits the heads as ``gqa_forward``'s does, and k, v are this
+    rank's Kv / ranks heads. Where Kv does not divide over the ranks, a
+    rank's columns of ``wk``/``wv`` split a head: the k/v projections are
+    then gathered over ``tp`` before RoPE, each rank attends with the Kv
+    heads its query heads read, and k, v hold every head."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, positions, n_heads, n_kv, head_dim, rope_theta)
-    out = attend(q, k, v, block_q=block_q)
-    return matmul(out.reshape(b, s, n_heads * head_dim), p["wo"]), (k, v)
+    if tp is None or tp.size == 1:
+        q, k, v = _qkv(p, x, positions, n_heads, n_kv, head_dim, rope_theta)
+        out = attend(q, k, v, block_q=block_q)
+        return matmul(out.reshape(b, s, n_heads * head_dim), p["wo"]), (k, v)
+    h_loc, whole = _heads_on(tp, n_heads, n_kv)
+    if whole:
+        q, k, v = _qkv(p, x, positions, h_loc, n_kv // tp.size, head_dim, rope_theta)
+        out = attend(q, k, v, block_q=block_q)
+    else:
+        q, k, v = matmul(x, p["wq"]), matmul(x, p["wk"]), matmul(x, p["wv"])
+        if "bq" in p:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        k, v = _gather_columns(tp, k, v)
+        q = apply_rope(q.reshape(b, s, h_loc, head_dim), positions, rope_theta)
+        k = apply_rope(k.reshape(b, s, n_kv, head_dim), positions, rope_theta)
+        v = v.reshape(b, s, n_kv, head_dim)
+        # the Kv head each of this rank's query heads reads
+        kv_of = (tp.index * h_loc + torch.arange(h_loc, device=x.device)) // (n_heads // n_kv)
+        out = attend(q, k[:, :, kv_of], v[:, :, kv_of], block_q=block_q)
+    out = matmul(out.reshape(b, s, h_loc * head_dim), p["wo"])
+    return reduce_partial(tp, out), (k, v)
 
 
 def decode_position(pos, device) -> torch.Tensor:
@@ -213,27 +275,60 @@ def decode_position(pos, device) -> torch.Tensor:
 
 
 def gqa_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos, *, n_heads: int,
-               n_kv: int, head_dim: int, rope_theta: float):
+               n_kv: int, head_dim: int, rope_theta: float, tp=None, seq=None):
     """One-token decode: x (B, 1, D); caches (B, S_max, Kv, hd); ``pos`` an
     int or a 0-dim tensor. Writes position ``pos`` of both caches in place,
     attends over every slot at or below it (float32 softmax, probabilities
-    cast to ``x.dtype``) and returns (out (B, 1, D), (k_cache, v_cache))."""
-    b, s_max = x.shape[0], k_cache.shape[1]
+    cast to ``x.dtype``) and returns (out (B, 1, D), (k_cache, v_cache)).
+
+    Across ranks (flash-decoding): ``tp`` holds this rank's heads' columns
+    of ``wq``/``wk``/``wv`` and rows of ``wo``; the new token's q, k, v are
+    gathered over ``tp`` before RoPE (every head, so a head that ``wk``'s
+    columns split is whole). ``seq`` splits the caches' sequence: the
+    caches are this rank's chunk of S_max / ``seq.size`` slots, written
+    only where it holds ``pos``. Each rank scores every head over its chunk
+    with the same mask; the softmax's maximum and its sum are combined over
+    ``seq`` before the probabilities are formed, and the weighted values
+    are summed over ``seq``. The rank's heads' slice of the output goes
+    through its rows of ``wo`` and is summed over ``tp``."""
+    b, chunk = x.shape[0], k_cache.shape[1]
     pos_t = decode_position(pos, x.device)
     q, k, v = matmul(x, p["wq"]), matmul(x, p["wk"]), matmul(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if tp is not None:
+        _heads_on(tp, n_heads, n_kv)
+        q, k, v = _gather_columns(tp, q, k, v)
     q = apply_rope(q.reshape(b, 1, n_heads, head_dim), pos_t, rope_theta)
     k = apply_rope(k.reshape(b, 1, n_kv, head_dim), pos_t, rope_theta)
-    k_cache.index_copy_(1, pos_t, k)
-    v_cache.index_copy_(1, pos_t, v.reshape(b, 1, n_kv, head_dim))
+    v = v.reshape(b, 1, n_kv, head_dim)
+    spread = seq is not None and seq.size > 1
+    base = seq.index * chunk if spread else 0
+    if spread:  # only the chunk that holds pos takes the new token
+        slot = (pos_t - base).clamp(0, chunk - 1)
+        inside = (pos_t >= base) & (pos_t < base + chunk)
+        k = torch.where(inside, k, k_cache.index_select(1, slot))
+        v = torch.where(inside, v, v_cache.index_select(1, slot))
+    else:
+        slot = pos_t
+    k_cache.index_copy_(1, slot, k)
+    v_cache.index_copy_(1, slot, v)
     qg = q.reshape(b, n_kv, n_heads // n_kv, head_dim)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).to(_scores_dtype(q.dtype)) / math.sqrt(head_dim)
-    mask = torch.arange(s_max, device=x.device) <= pos_t
-    s = s.masked_fill(~mask, float("-inf"))
-    pr = torch.softmax(s.to(torch.float32), dim=-1).to(x.dtype)
-    out = torch.einsum("bkgs,bskd->bkgd", pr, v_cache)
-    return matmul(out.reshape(b, 1, n_heads * head_dim), p["wo"]), (k_cache, v_cache)
+    mask = base + torch.arange(chunk, device=x.device) <= pos_t
+    s = s.masked_fill(~mask, float("-inf")).to(torch.float32)
+    if spread:
+        e = torch.exp(s - seq.max(s.amax(-1, keepdim=True)))
+        pr = (e / seq.sum(e.sum(-1, keepdim=True))).to(x.dtype)
+        out = seq.sum(torch.einsum("bkgs,bskd->bkgd", pr.to(torch.float32), v_cache.to(torch.float32))).to(x.dtype)
+    else:
+        pr = torch.softmax(s, dim=-1).to(x.dtype)
+        out = torch.einsum("bkgs,bskd->bkgd", pr, v_cache)
+    if tp is None:
+        return matmul(out.reshape(b, 1, n_heads * head_dim), p["wo"]), (k_cache, v_cache)
+    h_loc = n_heads // tp.size
+    mine = out.reshape(b, 1, n_heads, head_dim)[:, :, tp.index * h_loc:(tp.index + 1) * h_loc]
+    return reduce_partial(tp, matmul(mine.reshape(b, 1, h_loc * head_dim), p["wo"])), (k_cache, v_cache)
 
 
 class GQAAttention(nn.Module):
@@ -296,7 +391,7 @@ def mlp_forward(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     if tp is not None:
         x = tp.copy_to(x)
     out = matmul(F.silu(matmul(x, p["wg"])) * matmul(x, p["wu"]), p["wd"])
-    return out if tp is None else tp.reduce_from(out)
+    return out if tp is None else reduce_partial(tp, out)
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,25 @@ Dispatch, as the reference selects it per config:
   buffers go through one grouped SwiGLU and the outputs are gathered back.
   Assignments past an expert's capacity are dropped.
 * ``"einsum"`` — the one-hot dispatch and combine products.
-* ``"ep"`` — expert parallelism. Without a process group this is the
-  reference's own no-mesh branch: scatter at the same capacity. Across
-  cards it waits for the mesh (ROADMAP queue 1, item 7).
+* ``"ep"`` — expert parallelism over a mesh's ``ep_axis`` (the
+  reference's ``shard_map`` dispatch): each rank routes its chunk of the
+  tokens, fills every expert's buffer at a per-device capacity, sends each
+  expert's buffer to the rank that holds it (one ``all_to_all``), runs its
+  own experts and sends the outputs back (the reverse ``all_to_all``).
+  Without a mesh, without ``ep_axis`` on it, or with a token count that
+  does not divide over the mesh's ranks or is smaller than their number,
+  it is the reference's fallback: scatter at the global capacity.
+
+Under a mesh with the ``"model"`` axis (``moe_forward(..., mesh=)``, or the
+ambient ``distributed.context`` mesh, as the reference finds it) a rank
+holds its experts' shard of ``wg``/``wu``/``wd`` (E / ep of them, by
+``lm_param_specs``), the router whole and the shared experts by hidden
+columns. Scatter and einsum then run at the global capacity over every
+token this rank's group holds, each rank filling only its own experts'
+buffers; the partial outputs are summed over ``"model"``. The aux losses
+are those of the tokens a rank routed (serving reads none; summing them
+over the token shards comes with LM training across ranks, ROADMAP queue
+1, item 7.7).
 
 Routing: softmax gating, or deepseek-v3's sigmoid gating with the top-k
 weights normalized. Aux losses: the Switch load balance and the router z.
@@ -27,6 +43,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import MeshAxes
+from repro_torch.distributed.context import get_current_mesh
 from repro_torch.models.layers import einsum, init_mlp, mlp_forward
 from repro_torch.utils import resolve_device, topk_first
 
@@ -116,27 +134,59 @@ def _capacity(n: int, cfg: MoEConfig) -> int:
     return min(max(int(math.ceil(n * cfg.top_k / cfg.n_experts * cfg.capacity_factor)), 1), n)
 
 
-def _dispatch_scatter(flat, w, idx, p, cfg: MoEConfig, capacity: int) -> torch.Tensor:
-    n, d = flat.shape
-    k, e = cfg.top_k, cfg.n_experts
+def _slots(idx: torch.Tensor, cfg: MoEConfig, capacity: int, offset: torch.Tensor | None = None):
+    """(slot, keep) of every (token, slot) assignment in (E·capacity)
+    buffers: its expert's row block and its arrival position, or the spare
+    row E·capacity past the capacity. ``offset`` (E,) adds the assignments
+    to each expert that arrived before these tokens (other ranks')."""
     e_flat = idx.reshape(-1)
-    pos = _positions_by_expert(e_flat, e)
+    pos = _positions_by_expert(e_flat, cfg.n_experts)
+    if offset is not None:
+        pos = pos + offset[e_flat]
     keep = pos < capacity
-    slot = torch.where(keep, e_flat * capacity + pos, e * capacity)
-    # one spare row takes every dropped assignment (the reference's
-    # out-of-range slot under mode="drop") and is cut off after
-    xe = torch.zeros((e * capacity + 1, d), dtype=flat.dtype, device=flat.device)
+    return torch.where(keep, e_flat * capacity + pos, cfg.n_experts * capacity), keep
+
+
+def _fill(flat: torch.Tensor, slot: torch.Tensor, rows: int, k: int) -> torch.Tensor:
+    """(rows + 1, D) buffers with every token copy at its slot; the spare
+    last row takes every dropped assignment (the reference's out-of-range
+    slot under mode="drop") and is cut off by the caller."""
+    xe = torch.zeros((rows + 1, flat.shape[1]), dtype=flat.dtype, device=flat.device)
     xe[slot] = flat.repeat_interleave(k, dim=0)
-    ye = _expert_ffn(xe[:-1].reshape(e, capacity, d), p).reshape(e * capacity, d)
-    y_tok = torch.where(keep[:, None], ye[slot.clamp_max(e * capacity - 1)], 0.0)
-    return (y_tok.reshape(n, k, d) * w[..., None].to(flat.dtype)).sum(1)
+    return xe
 
 
-def _dispatch_einsum(flat, w, idx, p, cfg: MoEConfig, capacity: int) -> torch.Tensor:
+def _combine(ye: torch.Tensor, slot, keep, w, n: int, k: int, dtype) -> torch.Tensor:
+    """The weighted sum of each token's expert outputs, ye (rows, D)."""
+    y_tok = torch.where(keep[:, None], ye[slot.clamp_max(ye.shape[0] - 1)], 0.0)
+    return (y_tok.reshape(n, k, -1) * w[..., None].to(dtype)).sum(1)
+
+
+def _dispatch_scatter(flat, w, idx, p, cfg: MoEConfig, capacity: int, offset=None, e0: int = 0) -> torch.Tensor:
+    """Scatter at ``capacity``. ``p`` may hold the experts [e0, e0 + E_loc)
+    alone (a rank's shard): only their buffers are filled and run, and the
+    other experts' assignments add nothing here."""
+    n, d = flat.shape
+    k, e_loc = cfg.top_k, p["wg"].shape[0]
+    slot, keep = _slots(idx, cfg, capacity, offset)
+    if e_loc != cfg.n_experts:
+        mine = keep & (slot >= e0 * capacity) & (slot < (e0 + e_loc) * capacity)
+        slot, keep = torch.where(mine, slot - e0 * capacity, e_loc * capacity), mine
+    xe = _fill(flat, slot, e_loc * capacity, k)
+    ye = _expert_ffn(xe[:-1].reshape(e_loc, capacity, d), p).reshape(e_loc * capacity, d)
+    return _combine(ye, slot, keep, w, n, k, flat.dtype)
+
+
+def _dispatch_einsum(flat, w, idx, p, cfg: MoEConfig, capacity: int, offset=None, e0: int = 0) -> torch.Tensor:
+    """The one-hot dispatch at ``capacity``; over a rank's experts [e0, e0 +
+    E_loc) where ``p`` holds that shard, as :func:`_dispatch_scatter`."""
     n, _ = flat.shape
-    e = cfg.n_experts
-    e_oh = F.one_hot(idx, e).to(flat.dtype)  # (N, k, E)
-    pos = _positions_by_expert(idx.reshape(-1), e).reshape(n, cfg.top_k)
+    e, e_loc = cfg.n_experts, p["wg"].shape[0]
+    e_oh = F.one_hot(idx, e)[..., e0:e0 + e_loc].to(flat.dtype)  # (N, k, E_loc)
+    pos = _positions_by_expert(idx.reshape(-1), e)
+    if offset is not None:
+        pos = pos + offset[idx.reshape(-1)]
+    pos = pos.reshape(n, cfg.top_k)
     keep = (pos < capacity).to(flat.dtype)
     # jax.nn.one_hot gives a zero row past the last class; so does keep
     pos_oh = F.one_hot(pos.clamp_max(capacity - 1), capacity).to(flat.dtype) * keep[..., None]
@@ -146,22 +196,80 @@ def _dispatch_einsum(flat, w, idx, p, cfg: MoEConfig, capacity: int) -> torch.Te
     return einsum("nec,ecd->nd", combine, _expert_ffn(xe, p))
 
 
-def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig):
-    """x (B, S, D) -> (out (B, S, D), aux losses)."""
+def _dispatch_ep(flat, w, idx, p, cfg: MoEConfig, c_dev: int, ep: MeshAxes) -> torch.Tensor:
+    """The reference's ``_dispatch_ep`` on one rank: its tokens (n, D)
+    grouped per global expert at the per-device capacity ``c_dev`` (its
+    own arrival positions), each expert's group sent to the rank holding it
+    (``all_to_all`` over ``ep``), the grouped SwiGLU over this rank's E /
+    ep experts, the outputs sent back and combined."""
+    n, d = flat.shape
+    k, e, m = cfg.top_k, cfg.n_experts, ep.size
+    e_loc = e // m
+    slot, keep = _slots(idx, cfg, c_dev)
+    xe = _fill(flat, slot, e * c_dev, k)[:-1].reshape(m, e_loc * c_dev, d)
+    # block j holds experts [j·E_loc, (j+1)·E_loc): rank j receives its own
+    # experts' groups from every rank
+    xe = ep.all_to_all(xe).reshape(m, e_loc, c_dev, d).transpose(0, 1).reshape(e_loc, m * c_dev, d)
+    ye = _expert_ffn(xe, p).reshape(e_loc, m, c_dev, d).transpose(0, 1).reshape(m, e_loc * c_dev, d)
+    ye = ep.all_to_all(ye).reshape(e * c_dev, d)
+    return _combine(ye, slot, keep, w, n, k, flat.dtype)
+
+
+def _moe_on_mesh(p: dict, flat: torch.Tensor, cfg: MoEConfig, mesh, token_axes: tuple):
+    """The dispatch on one rank of ``mesh``: ``flat`` is the block of the
+    tokens that this rank's group along ``token_axes`` holds (every token
+    where there are none), replicated over the other axes; ``p`` holds
+    this rank's experts. Returns (this block's output, aux losses)."""
+    ep = MeshAxes(mesh, cfg.ep_axis)
+    e_loc = cfg.n_experts // ep.size
+    if cfg.n_experts % ep.size or p["wg"].shape[0] != e_loc:
+        raise ValueError(f"on a mesh with {cfg.ep_axis!r} of {ep.size} the expert weights are a rank's "
+                         f"{cfg.n_experts} / {ep.size} experts; got wg of shape {tuple(p['wg'].shape)}")
+    if tuple(token_axes) != mesh.axis_names[:len(token_axes)]:
+        raise ValueError(f"token axes {token_axes} must lead the mesh's axes {mesh.axis_names}")
+    toks = MeshAxes(mesh, token_axes)
+    rest = MeshAxes(mesh, mesh.axis_names[len(token_axes):])
+    n, n_dev = flat.shape[0] * toks.size, mesh.size
+    if cfg.impl == "ep" and n % n_dev == 0 and n >= n_dev:
+        # tokens split over every axis in axis order: this rank's chunk is
+        # its position along the axes that replicate the block
+        n_loc = n // n_dev
+        mine = flat[rest.index * n_loc:(rest.index + 1) * n_loc]
+        w, idx, aux = _route(p, mine, cfg)
+        c_loc = max(int(math.ceil(n_loc * cfg.top_k / cfg.n_experts * cfg.capacity_factor)), 1)
+        c_loc = -(-c_loc // ep.size) * ep.size  # a multiple of ep for the exchange's split
+        return rest.gather(_dispatch_ep(mine, w, idx, p, cfg, c_loc, ep), 0), aux
+    # the global capacity-scatter: the assignments of the blocks before this
+    # one arrive first at every expert
+    w, idx, aux = _route(p, flat, cfg)
+    offset = None
+    if toks.size > 1:
+        counts = toks.gather(torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)[None], 0)
+        offset = counts[:toks.index].sum(0)
+    dispatch = {"scatter": _dispatch_scatter, "ep": _dispatch_scatter, "einsum": _dispatch_einsum}[cfg.impl]
+    out = dispatch(flat, w, idx, p, cfg, _capacity(n, cfg), offset, ep.index * e_loc)
+    if ep.size > 1:
+        out = ep.reduce_from(out.to(torch.float32)).to(flat.dtype)
+    return out, aux
+
+
+def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig, *, mesh=None, token_axes: tuple = ()):
+    """x (B, S, D) -> (out (B, S, D), aux losses). ``mesh`` (default: the
+    ambient one): a mesh with ``cfg.ep_axis`` puts the dispatch across its
+    ranks (module docstring), ``x`` being the tokens this rank's group
+    along ``token_axes`` (leading axes of the mesh) holds."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
-    w, idx, aux = _route(p, flat, cfg)
-    capacity = _capacity(flat.shape[0], cfg)
-    if cfg.impl == "ep" and torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError("expert-parallel dispatch across cards is not ported yet "
-                                  "(ROADMAP queue 1, item 7: the mesh)")
-    if cfg.impl in ("scatter", "ep"):
-        out = _dispatch_scatter(flat, w, idx, p, cfg, capacity)
-    elif cfg.impl == "einsum":
-        out = _dispatch_einsum(flat, w, idx, p, cfg, capacity)
-    else:
+    mesh = get_current_mesh() if mesh is None else mesh
+    if cfg.impl not in ("scatter", "einsum", "ep"):
         raise ValueError(f"unknown moe impl {cfg.impl!r}")
+    if mesh is not None and cfg.ep_axis in mesh.shape:
+        out, aux = _moe_on_mesh(p, flat, cfg, mesh, tuple(token_axes))
+        tp = MeshAxes(mesh, "model")
+    else:
+        w, idx, aux = _route(p, flat, cfg)
+        dispatch = _dispatch_einsum if cfg.impl == "einsum" else _dispatch_scatter
+        out, tp = dispatch(flat, w, idx, p, cfg, _capacity(flat.shape[0], cfg)), None
     if cfg.n_shared:
-        out = out + mlp_forward(p["shared"], flat)
+        out = out + mlp_forward(p["shared"], flat, tp)
     return out.reshape(b, s, d), aux

@@ -93,26 +93,13 @@ def row_base(table: torch.Tensor, tp) -> int:
     return 0 if tp is None else tp.index * table.shape[0]
 
 
-def lookup(table: torch.Tensor, ids: torch.Tensor, tp=None) -> torch.Tensor:
-    """``table[ids]`` where ``table`` is this rank's row shard over ``tp``:
-    each rank looks up the ids in its rows and gives zeros for the rest,
-    and the ranks' rows are summed (``reduce_from``; one term is not zero,
-    so the sum is exact)."""
-    if tp is None or tp.size == 1:
-        return table[ids]
-    local = ids - row_base(table, tp)
-    own = (local >= 0) & (local < table.shape[0])
-    rows = table[torch.where(own, local, 0)]
-    return tp.reduce_from(torch.where(own[..., None], rows, 0.0))
-
-
 def _encode(p: dict, blocks, cfg: Bert4RecConfig, items: torch.Tensor, tp=None) -> torch.Tensor:
     """items (B, S) int -> hidden (B, S, D) over the top-level parameters
     ``p`` and the per-block trees ``blocks``; items move to the table's
     device."""
     items = torch.as_tensor(items).to(p["item_embed"].device).long()
     b, s = items.shape
-    x = (lookup(p["item_embed"], items, tp) + p["pos_embed"][None, :s]).to(cfg.dtype)
+    x = (L.vocab_lookup(p["item_embed"], items, tp) + p["pos_embed"][None, :s]).to(cfg.dtype)
     positions = torch.arange(s, device=items.device).expand(b, s)
     for blk in blocks:
         x = block_forward(blk, cfg, x, positions, tp)

@@ -26,9 +26,19 @@ once, at load, which is the same arithmetic; a serving caller holds that
 copy instead of the float32 masters.
 
 The decode step writes its position into ``caches`` in place and returns
-the same tensors (the reference's jitted step donates them). The
-parameter and cache shardings (``lm_param_specs``, ``cache_specs``) are
-ROADMAP queue 1, item 7.
+the same tensors (the reference's jitted step donates them).
+
+Across ranks: :func:`lm_param_specs` and :func:`cache_specs` are the
+reference's shardings (per dim None, an axis name or a tuple of names).
+``lm_prefill`` and ``lm_decode_step`` take ``shards`` (an
+:class:`LMShards`) to run on one rank of a mesh over the shards those
+specs give it, computing what the reference's GSPMD program computes: the
+vocabulary split over ``"model"`` (the embedding looked up by the rows'
+owners, the head's logits by columns, gathered whole), attention by heads
+(the prefill's caches turned into sequence chunks by one ``all_to_all``;
+decode as flash-decoding over the cache's sequence chunks), the MLP by
+hidden columns and the MoE expert-parallel (``moe.py``). MLA models under
+a mesh are ROADMAP queue 1, item 7.8.
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.collectives import MeshAxes
+from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoEConfig, init_moe, moe_forward
 from repro_torch.utils import resolve_device, tree_leaves, tree_map, tree_unflatten
@@ -179,6 +191,96 @@ def init_lm(gen: torch.Generator, cfg: TransformerConfig, *, device: str | torch
 
 
 # ---------------------------------------------------------------------------
+# Shardings (the reference's ``lm_param_specs``, ``cache_specs``)
+# ---------------------------------------------------------------------------
+
+
+def lm_param_specs(cfg: TransformerConfig) -> Params:
+    """The spec tree matching :func:`init_lm` (``transformer.py:169-237``):
+    the vocabulary by rows of ``embed`` and columns of ``head`` over
+    ``"model"``, attention's q/k/v projections by columns and ``wo`` by
+    rows, the MLP's ``wg``/``wu`` by columns and ``wd`` by rows, the
+    experts by the expert axis, MLA's up-projections by columns; the rest
+    replicated. Stacked blocks carry a leading ``None`` for the layer axis;
+    ``mtp_block``'s specs drop it. Metadata alone: every config has one."""
+    col, row = (None, None, "model"), (None, "model", None)
+    rep2, rep3 = (None, None), (None, None, None)
+
+    def gqa_spec():
+        out = {"wq": col, "wk": col, "wv": col, "wo": row}
+        if cfg.qkv_bias:
+            out.update(bq=(None, "model"), bk=(None, "model"), bv=(None, "model"))
+        return out
+
+    def mla_spec():
+        return {"wq_a": rep3, "q_norm": rep2, "wq_b": col, "wkv_a": rep3, "kv_norm": rep2, "wk_rope": rep3,
+                "wk_b": col, "wv_b": col, "wo": row}
+
+    def mlp_spec():
+        return {"wg": col, "wu": col, "wd": row}
+
+    def moe_spec():
+        out = {"router": rep3, "wg": (None, "model", None, None), "wu": (None, "model", None, None),
+               "wd": (None, "model", None, None)}
+        if cfg.moe and cfg.moe.n_shared:
+            out["shared"] = mlp_spec()
+        return out
+
+    def block_spec(moe):
+        return {"attn": mla_spec() if cfg.attn == "mla" else gqa_spec(), "ffn": moe_spec() if moe else mlp_spec(),
+                "ln1": rep2, "ln2": rep2}
+
+    def unstacked(tree):
+        return {k: unstacked(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[1:]
+
+    specs = {
+        "embed": ("model", None),
+        "blocks_dense": block_spec(False) if cfg.n_dense_layers else None,
+        "blocks_moe": block_spec(True) if cfg.n_moe_layers else None,
+        "ln_f": (None,),
+        "head": (None, "model"),
+    }
+    if cfg.mtp_depth:
+        specs["mtp_proj"] = rep2
+        specs["mtp_block"] = unstacked(block_spec(False))
+    return specs
+
+
+def cache_specs(cfg: TransformerConfig, *, seq_shard: bool) -> dict:
+    """The caches' specs (``transformer.py:367-383``): the batch over
+    ``("pod", "data")``; ``seq_shard`` puts the sequence over ``"model"``,
+    else the Kv heads go there (where there is more than one). A mesh
+    without ``"pod"`` drops it (``launch.steps.fix_axes``)."""
+    seq = "model" if seq_shard else None
+    kv = None if seq_shard else ("model" if cfg.n_kv_heads > 1 else None)
+    if cfg.attn == "mla":
+        return {"ckv": (None, ("pod", "data"), seq, None), "krope": (None, ("pod", "data"), seq, None)}
+    return {"k": (None, ("pod", "data"), seq, kv, None), "v": (None, ("pod", "data"), seq, kv, None)}
+
+
+class LMShards:
+    """Where one rank of ``mesh`` holds a serving step's tensors, as the
+    reference's prefill and decode bundles shard them: the parameters by
+    :func:`lm_param_specs` (``tp``: the ``"model"`` axis), the batch rows
+    over the batch axes (``rows``), the caches' sequence over ``"model"``
+    (``seq``). ``long_context`` (decode at a batch below 8) puts the
+    sequence over every axis and keeps every row on every rank."""
+
+    def __init__(self, mesh, *, long_context: bool = False):
+        self.mesh = mesh
+        self.tp = MeshAxes(mesh, "model")
+        self.rows = MeshAxes(mesh, () if long_context else batch_axes(mesh))
+        self.seq = MeshAxes(mesh, mesh.axis_names if long_context else "model")
+
+
+def require_gqa(cfg: TransformerConfig, what: str) -> None:
+    """Raise for an MLA model, whose serving across ranks is not ported."""
+    if cfg.attn == "mla":
+        raise NotImplementedError(f"{cfg.name}:{what} under a mesh: MLA across ranks is not ported "
+                                  "(ROADMAP queue 1, item 7.8)")
+
+
+# ---------------------------------------------------------------------------
 # Weight carry-over and the serving copy
 # ---------------------------------------------------------------------------
 
@@ -264,12 +366,12 @@ def _layers(params: Params, cfg: TransformerConfig):
             yield base + i, tree_unflatten(blocks, [views[i] for views in per_leaf]), moe
 
 
-def _ffn(blk: Params, x: torch.Tensor, cfg: TransformerConfig, moe: bool):
+def _ffn(blk: Params, x: torch.Tensor, cfg: TransformerConfig, moe: bool, shards: LMShards | None = None):
     h = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
-    if moe:
-        f, aux = moe_forward(blk["ffn"], h, cfg.moe)
-    else:
-        f, aux = L.mlp_forward(blk["ffn"], h), {}
+    if not moe:
+        return x + L.mlp_forward(blk["ffn"], h, None if shards is None else shards.tp), {}
+    on_mesh = {} if shards is None else {"mesh": shards.mesh, "token_axes": shards.rows.axes}
+    f, aux = moe_forward(blk["ffn"], h, cfg.moe, **on_mesh)
     return x + f, aux
 
 
@@ -301,15 +403,19 @@ def _block_remat(blk: Params, x: torch.Tensor, positions: torch.Tensor, cfg: Tra
     return _block_forward(blk, x, positions, cfg, moe)
 
 
-def _embed(params: Params, cfg: TransformerConfig, tokens: torch.Tensor):
+def _embed(params: Params, cfg: TransformerConfig, tokens: torch.Tensor, shards: LMShards | None = None):
     b, s = tokens.shape
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = L.vocab_lookup(params["embed"], tokens, None if shards is None else shards.tp).to(cfg.dtype)
     return x, torch.arange(s, device=tokens.device).expand(b, s)
 
 
-def _logits(params: Params, cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params: Params, cfg: TransformerConfig, x: torch.Tensor, shards: LMShards | None = None) -> torch.Tensor:
+    """Float32 logits; across ranks the head's column shards are gathered
+    over ``"model"`` and the rows over the batch axes: every rank returns
+    the whole (B, V), as the reference's replicated output."""
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.matmul(x, params["head"].to(cfg.dtype)).to(torch.float32)
+    out = L.matmul(x, params["head"].to(cfg.dtype)).to(torch.float32)
+    return out if shards is None else shards.rows.gather(shards.tp.gather(out, -1), 0)
 
 
 def _trunk(params: Params, cfg: TransformerConfig, tokens: torch.Tensor):
@@ -382,17 +488,49 @@ def make_caches(cfg: TransformerConfig, batch: int, s_max: int, *, device: str |
     return {k: torch.zeros((n_l, batch, s_max, *tail), dtype=cfg.dtype, device=dev) for k, tail in shapes.items()}
 
 
+def _seq_chunks(kv: tuple, cfg: TransformerConfig, total: int, shards: LMShards) -> tuple:
+    """A rank's prefill (k, v), (B, S, Kv / ranks or Kv, hd) for its heads
+    over the whole prompt, as this rank's chunk of the caches' sequence
+    (B, total / ranks, Kv, hd), zero past S. Where a rank holds every head
+    the chunk is a slice; else one ``all_to_all`` over ``"model"`` (the
+    sequence's axis too) sends each rank its chunk of every rank's heads."""
+    k, v = kv
+    b, s, heads, hd = k.shape
+    m = shards.seq.size
+    c = total // m
+    both = torch.stack([k, v])
+    if s < total:
+        both = torch.cat([both, both.new_zeros((2, b, total - s, heads, hd))], 2)
+    if heads == cfg.n_kv_heads:
+        i = shards.seq.index
+        return tuple(both[:, :, i * c:(i + 1) * c])
+    blocks = both.reshape(2, b, m, c, heads, hd).permute(2, 0, 1, 3, 4, 5)
+    got = shards.seq.all_to_all(blocks.contiguous())  # block i: rank i's heads over this rank's chunk
+    return tuple(got.permute(1, 2, 3, 0, 4, 5).reshape(2, b, c, m * heads, hd))
+
+
 @torch.no_grad()
-def lm_prefill(params: Params, cfg: TransformerConfig, tokens: torch.Tensor, s_max: int | None = None):
+def lm_prefill(params: Params, cfg: TransformerConfig, tokens: torch.Tensor, s_max: int | None = None, *,
+               shards: LMShards | None = None):
     """The forward pass over the prompt, filling the caches. tokens (B, S)
     -> (logits of the last position (B, V) float32, caches filled to S).
     The caches are ``s_max`` long (default S, as the reference's), zero
-    past S: a caller that decodes passes the length it decodes to."""
+    past S: a caller that decodes passes the length it decodes to.
+
+    ``shards``: one rank of a mesh (module docstring); ``tokens`` are this
+    rank's rows, ``params`` its shards; the logits come back whole and the
+    caches as this rank's block (B / batch ranks, s_max / ``"model"``, Kv,
+    hd) of ``cache_specs``' sequence-sharded layout."""
+    if shards is not None:
+        require_gqa(cfg, "prefill")
     b, s = tokens.shape
-    if s_max is not None and s_max < s:
+    total = s if s_max is None else s_max
+    if total < s:
         raise ValueError(f"s_max {s_max} is shorter than the prompt's {s} tokens")
-    x, positions = _embed(params, cfg, tokens)
-    caches = make_caches(cfg, b, s if s_max is None else s_max, device=tokens.device)
+    if shards is not None and (total % shards.seq.size or shards.seq.axes != shards.tp.axes):
+        raise ValueError(f"caches of {total} slots do not split over {shards.seq}")
+    x, positions = _embed(params, cfg, tokens, shards)
+    caches = make_caches(cfg, b, total if shards is None else total // shards.seq.size, device=tokens.device)
     for layer, blk, moe in _layers(params, cfg):
         blk = _cast_block(blk, cfg.dtype)
         h = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
@@ -403,22 +541,35 @@ def lm_prefill(params: Params, cfg: TransformerConfig, tokens: torch.Tensor, s_m
             names = ("ckv", "krope")
         else:
             a, kv = L.gqa_prefill(blk["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                                  head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, block_q=cfg.block_q)
+                                  head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, block_q=cfg.block_q,
+                                  tp=None if shards is None else shards.tp)
             names = ("k", "v")
-        for name, t in zip(names, kv):
-            caches[name][layer, :, :s] = t
-        x, _ = _ffn(blk, x + a, cfg, moe)
-    return _logits(params, cfg, x[:, -1, :]), caches
+        if shards is None:
+            for name, t in zip(names, kv):
+                caches[name][layer, :, :s] = t
+        else:
+            for name, t in zip(names, _seq_chunks(kv, cfg, total, shards)):
+                caches[name][layer] = t
+        x, _ = _ffn(blk, x + a, cfg, moe, shards)
+    return _logits(params, cfg, x[:, -1, :], shards), caches
 
 
 @torch.no_grad()
-def lm_decode_step(params: Params, cfg: TransformerConfig, caches: dict, token: torch.Tensor, pos):
+def lm_decode_step(params: Params, cfg: TransformerConfig, caches: dict, token: torch.Tensor, pos, *,
+                   shards: LMShards | None = None):
     """One token per row: token (B,), ``pos`` an int or a 0-dim tensor (a
     tensor on the card keeps the step free of host syncs but the MoE
     routing's) -> (logits (B, V) float32, caches written at ``pos`` in
-    place)."""
-    x = params["embed"][token][:, None, :].to(cfg.dtype)
+    place).
+
+    ``shards``: one rank of a mesh; ``token`` its rows (every row in long
+    context), ``caches`` its sequence chunk (``LMShards.seq``); the logits
+    come back whole."""
+    if shards is not None:
+        require_gqa(cfg, "decode")
+    x = L.vocab_lookup(params["embed"], token, None if shards is None else shards.tp)[:, None, :].to(cfg.dtype)
     pos = L.decode_position(pos, x.device)
+    tp, seq = (None, None) if shards is None else (shards.tp, shards.seq)
     for layer, blk, moe in _layers(params, cfg):
         blk = _cast_block(blk, cfg.dtype)
         h = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
@@ -430,6 +581,6 @@ def lm_decode_step(params: Params, cfg: TransformerConfig, caches: dict, token: 
         else:
             a, _ = L.gqa_decode(blk["attn"], h, caches["k"][layer], caches["v"][layer], pos,
                                 n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                                rope_theta=cfg.rope_theta)
-        x, _ = _ffn(blk, x + a, cfg, moe)
-    return _logits(params, cfg, x[:, 0, :]), caches
+                                rope_theta=cfg.rope_theta, tp=tp, seq=seq)
+        x, _ = _ffn(blk, x + a, cfg, moe, shards)
+    return _logits(params, cfg, x[:, 0, :], shards), caches

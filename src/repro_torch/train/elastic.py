@@ -44,7 +44,10 @@ def map_with_specs(fn, tree, specs):
     follows ``tree`` through dicts, lists and named tuples; a spec leaf (a
     plain tuple: per array dim None, an axis name or a tuple of names, as a
     ``PartitionSpec`` holds) where ``tree`` goes on applies to every leaf
-    below it (a prefix, as in JAX)."""
+    below it (a prefix, as in JAX). A None in ``tree`` (an absent subtree,
+    as an LM's ``blocks_moe`` of a dense model) stays None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: map_with_specs(fn, tree[k], specs[k] if isinstance(specs, dict) else specs) for k in tree}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):

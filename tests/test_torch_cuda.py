@@ -34,7 +34,8 @@ programs on two ranks sharing the card equal the single-process programs;
 ``flash_scan`` on a rank's row shard of the candidate codes equals its
 plain version; BERT4Rec's cells and the GNN steps on four ranks sharing
 the card (``launch/steps`` under a mesh) equal the one-process cells (the
-tolerances are in the tests).
+tolerances are in the tests), and so do the LM prefill and decode cells of
+four reduced GQA configs (the MoE one expert-parallel).
 """
 
 from __future__ import annotations
@@ -1076,3 +1077,48 @@ def test_cuda_gnn_steps_across_ranks_equal_one_process(cuda_device, tmp_path):
                         w = np.asarray(wanted[path], np.float64)
                         scale = largest if path == "['layers']/['attn']/['b1']" else float(np.abs(w).max())
                         assert float(np.abs(a - w).max()) <= 1e-3 * scale + extra, (label, tree, path)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_cells_across_ranks_equal_one_process(cuda_device, tmp_path):
+    """The LM serving cells (``launch/steps``' prefill and decode bundles
+    under a mesh; ``tests/_mesh_lm_ranks.py``: a prefill of B 8 × S 8, a
+    batched and a long-context decode from its caches) of the reduced
+    moonshot with ``impl="ep"`` at capacity factor 4.0 (no assignment drops,
+    so the ep branch computes what one process does), qwen1.5, qwen2 (Kv 1)
+    and llama with 6 heads and Kv 3 on four ranks sharing the card, on (2, 2), (1, 2) and (2, 1)
+    meshes, against the one-process cells on the card from one set of
+    weights: logits within 1e-4 of the largest |logit|, every cache within
+    1e-4 of its largest |value|, argmax equal but at near ties (a top-2
+    margin below 1e-4)."""
+    import _mesh_lm_ranks as mlr
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer as tfm
+
+    cases = {"moonshot-ep": ("moonshot-v1-16b-a3b", {"moe": {"impl": "ep", "capacity_factor": 4.0}}),
+             "qwen1.5": ("qwen1.5-0.5b", {}), "qwen2-kv1": ("qwen2-72b", {}),
+             "llama-kv3": ("llama3.2-3b", {"n_heads": 6, "n_kv_heads": 3})}
+
+    def make():
+        out = {}
+        for i, (case, (arch, override)) in enumerate(cases.items()):
+            cfg = mlr.lm_config(arch, override)
+            out[case] = {"arch": arch, "override": override,
+                         "params": tfm.params_to_jax(tfm.init_lm(torch.Generator().manual_seed(i), cfg, device="cpu")),
+                         "tokens": np.random.default_rng(i).integers(0, cfg.vocab, (mlr.B, mlr.S)).astype(np.int32)}
+        return {"cases": out}
+
+    out = run_ranks(mlr.lm_cells, 4, _card_inputs(tmp_path, make), device="cuda", timeout=300)
+    for case in cases:
+        want = out[0]["one_process"][case]["cells"]
+        for rank in out:
+            for name, runs in rank["meshes"].items():
+                for cell, (logits, caches) in runs[case]["cells"].items():
+                    label = f"{case} rank {rank['rank']} {name} {cell}"
+                    w_logits, w_caches = want[cell]
+                    top2 = np.sort(w_logits, -1)[:, -2:]
+                    tie = top2[:, 1] - top2[:, 0] < 1e-4
+                    assert float(np.abs(logits - w_logits).max()) <= 1e-4 * float(np.abs(w_logits).max()), label
+                    assert not ((logits.argmax(-1) != w_logits.argmax(-1)) & ~tie).any(), label
+                    for k, w in w_caches.items():
+                        assert float(np.abs(caches[k] - w).max()) <= 1e-4 * float(np.abs(w).max()), (label, k)

@@ -10,8 +10,9 @@
 * ``moe_forward`` with scatter, einsum and ``ep`` without a process group
   (the reference's own no-mesh branch) equals the reference's (atol 2e-5),
   with shared experts, and at a capacity factor that drops assignments:
-  the stable sort drops the reference's ones. ``ep`` inside a process
-  group of more than one rank raises, naming ROADMAP item 7.
+  the stable sort drops the reference's ones. ``ep`` on a mesh of more
+  than one rank (the ambient one) takes the expert-parallel branch at the
+  per-device capacity (``tests/test_torch_mesh_moe.py`` runs it on ranks).
 * ``init_moe``'s leaves have the reference's shapes.
 """
 
@@ -25,6 +26,8 @@ import pytest
 import torch
 
 from repro.models import moe as jm
+from repro_torch.distributed.context import mesh_context
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import moe as tm
 from _lm_common import draw_like, jit_ref
 
@@ -87,12 +90,25 @@ def test_moe_forward_matches_reference(impl, case):
 
 
 def test_ep_across_ranks_raises(monkeypatch):
+    """``impl="ep"`` on a mesh of two ranks raises no more: it takes the
+    expert-parallel branch, each rank's chunk of 4 of the 8 tokens at the
+    per-device capacity ⌈4·2/8·1.25⌉ = 2 over its 4 experts. A spy stands
+    in for the exchange and the gather, so no ranks run."""
     _, tcfg = _cfgs(impl="ep")
     _, pt = _params(_cfgs()[0])
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tm.moe_forward(pt, torch.from_numpy(_x(8)), tcfg)
+    mesh = Mesh({"data": 1, "model": 2}, range(2), "cpu")  # rank 0 of two, no process group
+    mine = {k: v if k == "router" else v[:4] for k, v in pt.items()}
+    calls = []
+
+    def spy(flat, w, idx, p, cfg, c_dev, ep):
+        calls.append((flat.shape[0], c_dev, ep.size, p["wg"].shape[0]))
+        return torch.zeros_like(flat)
+
+    monkeypatch.setattr(tm, "_dispatch_ep", spy)
+    monkeypatch.setattr(mesh, "all_gather", lambda t, axes: [t, t])
+    with mesh_context(mesh):
+        out, _ = tm.moe_forward(mine, torch.from_numpy(_x(8)), tcfg)
+    assert calls == [(4, 2, 2, 4)] and out.shape == (2, 4, D)
 
 
 def test_init_moe_leaves_match_reference():
