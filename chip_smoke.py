@@ -340,7 +340,22 @@ non-zero and no result line is printed):
             (the ``all_to_all`` bytes apart, above 0 on every rank in the
             prefill and the batched decode), staged bytes, each rank's
             start-up and peak memory, beside the card's name and power
-            limit. No kernel of the repo runs here.
+            limit. Then LM training across the same ranks
+            (``build_bundle``'s train cell under the mesh: parameters and
+            both Adam moments by ``lm_param_specs``, gradients through every
+            collective, the vocabulary-parallel loss, the MoE aux losses over
+            every token): a float32 copy at depth 2, B 2 × S 512, 2 steps
+            (loss and grad_norm within 1e-5 relative of one process's, every
+            parameter and moment within 1e-4 of its tensor's largest
+            magnitude, parameters 2·steps·lr more), then moonshot at full
+            width, depth 3 (the dense layer and 2 MoE layers), float32
+            masters, bf16 compute, remat, ``train_4k``'s sequence at B 1
+            (4,096 tokens, 2,048 a rank through the ep branch), 3 steps,
+            every loss within 1% of one process's. Per step: seconds in one
+            process and on each rank, ``COMM`` by kind with the forward's
+            and the backward's ``all_to_all`` bytes apart (each equal to
+            ``mesh_lm_train_exchange_bytes``, the backward's above 0),
+            staged bytes, peak memory. No kernel of the repo runs here.
 18. examples  ``examples/torch_quickstart.py``,
             ``torch_distributed_build.py`` (1,000 rows in 2 segments on 2
             ranks, ``--seg-size 250 --ranks 2``) and ``torch_retrieval_serving.py``, each
@@ -4434,7 +4449,7 @@ def mesh_steps_path(dev, smi: str, t_start: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# LM serving across ranks (phase 17c)
+# LM serving and training across ranks (phase 17c)
 # ---------------------------------------------------------------------------
 
 #: moonshot-v1-16b-a3b at full width on a (data 1, model MESH_LM_RANKS) mesh
@@ -4454,6 +4469,19 @@ MESH_LM_F32 = {"depth": 2, "prefill": (2, 256), "decode": (8, 64, 2), "long": 2}
 MESH_LM_REL = 1e-4  # logits within 1e-4 of the largest |logit|
 MESH_LM_F32_TIE = 1e-4  # a float32 near tie: a top-2 margin below this
 MESH_LM_TIE = LM_DECODE_ATOL  # a bf16 near tie: a top-2 margin below the bf16 decode bound
+#: LM training across the same ranks (PR 28): MESH_LM_ARCH at full width,
+#: depth 3 of 48 (the dense first layer and 2 MoE layers), float32 masters,
+#: bf16 compute, remat as the full config sets it, impl "ep"; train_4k's
+#: sequence at B 1 (4,096 tokens, 2,048 a rank through the ep branch), 3
+#: steps of launch/steps' train bundle (PERF.md §4)
+MESH_LM_TRAIN = {"depth": 3, "batch": (1, 4096), "steps": 3}
+MESH_LM_TRAIN_LOSS_REL = 0.01  # bf16: every step's loss within 1% of one process's
+#: the float32 copy, TF32 off: losses and grad_norm within 1e-5 relative,
+#: each parameter and moment within 1e-4 of its tensor's largest magnitude
+#: (parameters 2·steps·lr more), tests/test_torch_mesh_lm_train.py's bounds
+MESH_LM_TRAIN_F32 = {"depth": 2, "batch": (2, 512), "steps": 2}
+MESH_LM_TRAIN_F32_REL = 1e-5
+MESH_LM_TRAIN_STATE_REL = 1e-4
 
 
 def moe_on_chunks(n_dev: int, ep: int):
@@ -4462,14 +4490,15 @@ def moe_on_chunks(n_dev: int, ep: int):
     branch runs (tokens that divide over the ranks, no fewer than them),
     each rank's chunk of the tokens is routed and scattered on its own at
     the per-device capacity (the exchange moves those buffers and changes
-    nothing); elsewhere the global capacity-scatter. The one-process side
-    of phase 17c's checks."""
+    nothing), and the aux losses are over every chunk's tokens (as the
+    ranks sum their ingredients); elsewhere the global capacity-scatter.
+    The one-process side of phase 17c's checks."""
     import torch
 
     from repro_torch.models import moe
     from repro_torch.models.layers import mlp_forward
 
-    def forward(p, x, cfg, *, mesh=None, token_axes=()):
+    def forward(p, x, cfg, *, mesh=None, token_axes=(), global_aux=False):
         b, s, d = x.shape
         flat = x.reshape(b * s, d)
         n = flat.shape[0]
@@ -4481,14 +4510,33 @@ def moe_on_chunks(n_dev: int, ep: int):
         outs = []
         for i in range(n_dev):
             chunk = flat[i * n_loc:(i + 1) * n_loc]
-            w, idx, aux = moe._route(p, chunk, cfg)
+            w, idx, _ = moe._route(p, chunk, cfg)
             outs.append(moe._dispatch_scatter(chunk, w, idx, p, cfg, c))
         out = torch.cat(outs)
         if cfg.n_shared:
             out = out + mlp_forward(p["shared"], flat)
-        return out.reshape(b, s, d), aux
+        return out.reshape(b, s, d), moe._route(p, flat, cfg)[2]
 
     return forward
+
+
+def mesh_lm_train_exchange_bytes(cfg, batch: tuple, ranks: int) -> dict:
+    """The ``all_to_all`` bytes a rank sends in one train step of ``cfg`` on
+    a (data 1, model ``ranks``) mesh at B × S = ``batch``, reckoned from the
+    shapes: the ep branch's exchange moves (E, c_loc, D) in the compute
+    dtype, c_loc = ⌈(B·S / ranks)·k / E·cf⌉ rounded up to a multiple of
+    ``ranks``; a MoE layer makes a pair in the forward, a pair again when
+    remat recomputes it, and a pair in the backward (the reverse
+    exchanges of the gradients, of the same size)."""
+    import torch
+
+    m = cfg.moe
+    n_loc = batch[0] * batch[1] // ranks
+    c = max(int(np.ceil(n_loc * m.top_k / m.n_experts * m.capacity_factor)), 1)
+    c = -(-c // ranks) * ranks
+    one = m.n_experts * c * cfg.d_model * torch.tensor([], dtype=cfg.dtype).element_size()
+    grad = 2 * cfg.n_moe_layers * one
+    return {"exchange_bytes": one, "c_loc": c, "grad": grad, "forward": grad * (2 if cfg.remat else 1)}
 
 
 def argmax_check(got, want, tie: float, what: str) -> dict:
@@ -4502,6 +4550,149 @@ def argmax_check(got, want, tie: float, what: str) -> dict:
     if any(margins[r] >= tie for r in differ) or not bool(got.isfinite().all()):
         raise AssertionError(f"{what}: argmax differs beyond a near tie, or logits not finite: {out}")
     return out
+
+
+def mesh_lm_train_cell(mesh, spec: dict, dtype, cfg=None) -> dict:
+    """Phase 17c's training part on one rank of ``mesh`` (a (data 1, model
+    m) mesh): ``spec["steps"]`` steps of the train bundle at ``spec["depth"]``
+    and B × S = ``spec["batch"]`` in one process on the first rank
+    (its MoE as the mesh computes it), then on the mesh from the same
+    weights and batches (every rank draws them from one seeded card
+    generator; the one process's state is freed before the mesh's is
+    made). Every step's loss and grad_norm must be finite; the bf16
+    cell's losses within ``MESH_LM_TRAIN_LOSS_REL`` of one process's;
+    the float32 cell's losses and grad_norms within
+    ``MESH_LM_TRAIN_F32_REL`` and every parameter and moment within
+    ``MESH_LM_TRAIN_STATE_REL`` of its tensor's largest magnitude
+    (parameters 2·steps·lr more). For that check every rank runs the
+    one-process steps (at once, sharing the card) and keeps its own
+    shards of the final state, so each rank holds its shards without a
+    gather; the tensor's largest magnitude is the maximum over the ranks'
+    shards. Each rank's ``all_to_all`` bytes a
+    step must equal ``mesh_lm_train_exchange_bytes``, the backward's
+    above 0. ``cfg``: another config than ``MESH_LM_ARCH``'s full one (a
+    CPU run at a small width). Returns this rank's readings."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs.registry import ShapeSpec, get_arch
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.elastic import reshard_for_mesh
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.utils import sync, tree_bytes, tree_paths
+
+    dev, first = mesh.device, mesh.index == 0
+    on_card = dev.type == "cuda"
+
+    def timed(fn, barrier: bool):
+        """fn() to a synchronized end: (result, seconds, COMM)."""
+        lm.reset_comm()
+        if barrier:
+            mesh.barrier()
+        sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        return res, time.perf_counter() - t0, dict(lm.COMM)
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg or get_arch(MESH_LM_ARCH).make_full(), n_layers=spec["depth"], dtype=dtype)
+    b, s = spec["batch"]
+    shape = ShapeSpec("train_4k", "train", {"global_batch": b, "seq_len": s})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(MESH_LM_SEED)
+    params = tfm.init_lm(gen, cfg, device=dev)
+    batches = [tuple(torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev, dtype=torch.int32)
+                     for _ in range(2)) for _ in range(spec["steps"])]
+    bundle = steps.lm_train_bundle(cfg, shape, mesh)
+    local = reshard_for_mesh(params, bundle.in_specs[0], mesh)
+    state_dtype = steps.lm_opt_cfg(cfg).state_dtype
+    res = {"depth": spec["depth"], "batch": list(spec["batch"]), "steps_n": spec["steps"],
+           "dtype": str(dtype), "state_gb_whole": 4 * tree_bytes(params) / 1e9,
+           "state_gb_rank": 4 * tree_bytes(local) / 1e9}
+    check_state = dtype == torch.float32
+    if not (first or check_state):
+        del params
+    sync(dev)
+    res["init_s"] = time.perf_counter() - t0
+    mesh.barrier()
+    one, want = None, None
+    if first or check_state:
+        reset_peak()
+        plain = steps.lm_train_bundle(cfg, shape)
+        opt = adamw_init(params, state_dtype=state_dtype)
+        one = []
+        with mock.patch.object(tfm, "moe_forward", moe_on_chunks(mesh.size, mesh.shape["model"])):
+            for tokens, labels in batches:
+                (params, opt, m), secs, _ = timed(lambda: plain.fn(params, opt, tokens, labels), False)
+                one.append({"s": secs, **{k: float(v) for k, v in m.items()}})
+        res["one_process_peak_gb"] = peak_gb()
+        if check_state:  # this rank's shards of the final state
+            want = {key: reshard_for_mesh(tree, bundle.in_specs[0], mesh)
+                    for key, tree in (("params", params), ("mu", opt.mu), ("nu", opt.nu))}
+        del params, opt
+    res["one_process"] = one
+    res["one_process_on"] = "every rank at once" if check_state else "the first rank"
+    mesh.barrier()
+    reset_peak()
+    opt = adamw_init(local, state_dtype=state_dtype)
+    expect = mesh_lm_train_exchange_bytes(cfg, spec["batch"], mesh.size)
+    rows = []
+    for tokens, labels in batches:
+        placed = [reshard_for_mesh(t, sp, mesh) for t, sp in zip((tokens, labels), bundle.in_specs[2:])]
+        (local, opt, m), secs, comm = timed(lambda: bundle.fn(local, opt, *placed), True)
+        row = {"s": secs, **{k: float(v) for k, v in m.items()}, "comm": comm,
+               "all_to_all_forward_bytes": comm["all_to_all_bytes"] - comm["all_to_all_grad_bytes"]}
+        if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
+            raise AssertionError(f"{dtype} train step on rank {mesh.index}: loss or grad_norm not finite: {row}")
+        if (comm["all_to_all_grad_bytes"] != expect["grad"] or row["all_to_all_forward_bytes"] != expect["forward"]
+                or expect["grad"] <= 0):
+            raise AssertionError(f"{dtype} train step on rank {mesh.index}: all_to_all bytes {comm} against "
+                                 f"the reckoning {expect}")
+        rows.append(row)
+    res["rank_steps"], res["exchange_reckoning"] = rows, expect
+    res["rank_peak_gb"] = peak_gb()
+    if first:
+        res["check"] = []
+        for i, (got, w) in enumerate(zip(rows, one)):
+            diff = {k: abs(got[k] - w[k]) / abs(w[k]) for k in ("loss", "ce", "grad_norm", "moe/load_balance",
+                                                                "moe/router_z")}
+            res["check"].append({"step": i + 1, "loss": got["loss"], "one_process_loss": w["loss"],
+                                 "grad_norm": got["grad_norm"], "one_process_grad_norm": w["grad_norm"],
+                                 "relative_difference": diff})
+            bound = MESH_LM_TRAIN_F32_REL if dtype == torch.float32 else MESH_LM_TRAIN_LOSS_REL
+            keys = ("loss", "grad_norm") if dtype == torch.float32 else ("loss",)
+            if not all(diff[k] <= bound for k in keys):
+                raise AssertionError(f"{dtype} train step {i + 1} across ranks against one process: {diff}")
+    if check_state:  # this rank's shards against the same shards of one process's state
+        lr = max(w["lr"] for w in one)
+        worst = {}
+        for key, tree in (("params", local), ("mu", opt.mu), ("nu", opt.nu)):
+            wanted = dict(tree_paths(want[key]))
+            for path, leaf in tree_paths(tree):
+                w = wanted[path]
+                largest = float(mesh.all_reduce(w.abs().max(), mesh.axis_names, "max"))
+                err = float((leaf - w).abs().max())
+                bound = MESH_LM_TRAIN_STATE_REL * largest + (2 * spec["steps"] * lr if key == "params" else 0.0)
+                worst[key] = max(worst.get(key, 0.0), err / bound if bound else float(err > 0))
+                if not err <= bound:
+                    raise AssertionError(f"float32 train on rank {mesh.index}: {key} {path} {err} beyond {bound}")
+        res["state_difference_over_bound"] = worst
+        del want
+    del local, opt
+    reset_peak()
+    return res
 
 
 def mesh_lm_rank(world, smi: str) -> list:
@@ -4660,19 +4851,29 @@ def mesh_lm_rank(world, smi: str) -> list:
     out["bf16"] = cells(MESH_LM_DEPTH, torch.bfloat16, MESH_LM_PREFILL, MESH_LM_DECODE, MESH_LM_LONG,
                         MESH_LM_TIE, None)
     out["bf16"]["s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for name, spec, dtype in (("train_float32", MESH_LM_TRAIN_F32, torch.float32),
+                              ("train_bf16", MESH_LM_TRAIN, torch.bfloat16)):
+        t0 = time.perf_counter()
+        out[name] = mesh_lm_train_cell(mesh, spec, dtype)
+        out[name]["s"] = time.perf_counter() - t0
     every = [None] * mesh.size
     torch.distributed.all_gather_object(every, out)
     return every
 
 
 def mesh_lm_path(dev, smi: str, t_start: float) -> None:
-    """Phase 17c: LM serving across ``MESH_LM_RANKS`` ranks sharing the card
-    over ``gloo`` (``mesh_lm_rank``). Prints each cell's one-process and
-    per-rank seconds, ``COMM`` by kind (the ``all_to_all`` bytes apart) and
-    staged bytes, the ranks' start-up and peak memory, the float32 check
-    and the bf16 argmax checks with their margins, beside the card's name
-    and power limit. The prefill and the batched decode must have sent
-    ``all_to_all`` bytes on every rank. No kernel of the repo runs here."""
+    """Phase 17c: LM serving and training across ``MESH_LM_RANKS`` ranks
+    sharing the card over ``gloo`` (``mesh_lm_rank``, then
+    ``mesh_lm_train_cell`` in the same ranks, so their start-up is paid
+    once). Prints each cell's one-process and per-rank seconds, ``COMM``
+    by kind (the ``all_to_all`` bytes apart, in training the backward's
+    apart too) and staged bytes, the ranks' start-up and peak memory, the
+    float32 checks and the bf16 checks with their margins, beside the
+    card's name and power limit. The prefill, the batched decode and every
+    train step (its backward too) must have sent ``all_to_all`` bytes on
+    every rank, a train step exactly the reckoning's. No kernel of the repo
+    runs here."""
     import torch
 
     from repro_torch.launch.mesh import run_ranks
@@ -4686,10 +4887,13 @@ def mesh_lm_path(dev, smi: str, t_start: float) -> None:
             sent = {cell: sum(c["all_to_all_bytes"] for c in r[part][cell]["comm"]) for cell in ("prefill", "decode")}
             if min(sent.values()) <= 0:
                 raise AssertionError(f"rank {r['rank']} of mesh_lm ({part}) sent no all_to_all bytes: {sent}")
+        for part in ("train_float32", "train_bf16"):
+            if min(step["comm"]["all_to_all_grad_bytes"] for step in r[part]["rank_steps"]) <= 0:
+                raise AssertionError(f"rank {r['rank']} of mesh_lm ({part}) sent no all_to_all bytes in a backward")
     emit({"phase": "mesh_lm", "card": smi, "arch": MESH_LM_ARCH, "depth": MESH_LM_DEPTH, "ranks": MESH_LM_RANKS,
           "mesh": {"data": 1, "model": MESH_LM_RANKS}, "backend": ranks[0]["backend"],
           "sizes": {"prefill": MESH_LM_PREFILL, "decode": MESH_LM_DECODE, "long": MESH_LM_LONG,
-                    "float32": MESH_LM_F32},
+                    "float32": MESH_LM_F32, "train_bf16": MESH_LM_TRAIN, "train_float32": MESH_LM_TRAIN_F32},
           "per_rank": ranks, "phase_s": time.perf_counter() - t_phase, "elapsed_s": time.perf_counter() - t_start})
 
 
@@ -4959,7 +5163,7 @@ def main() -> int:
     # ---- 17b. the recsys and GNN step bundles across ranks ----------------------
     mesh_step_launches = mesh_steps_path(dev, smi, t_start)
 
-    # ---- 17c. LM serving across ranks -------------------------------------------
+    # ---- 17c. LM serving and training across ranks -----------------------------
     mesh_lm_path(dev, smi, t_start)
 
     # ---- 18. the examples -------------------------------------------------------

@@ -51,15 +51,16 @@ _RANK_DEVICE: torch.device | None = None
 #: example: gathers made, bytes received by them, and seconds spent in
 #: them; all-reduces made, bytes each contributed, and seconds;
 #: all-to-alls made, bytes each sent (its own block included), and
-#: seconds; bytes copied through the host for a ``gloo`` group on the card
-#: (every kind)
+#: seconds, and of those bytes the ones that backwards sent
+#: (``distributed.collectives``); bytes copied through the host for a
+#: ``gloo`` group on the card (every kind)
 COMM = {"gathers": 0, "gathered_bytes": 0, "gather_s": 0.0, "reduces": 0, "reduced_bytes": 0, "reduce_s": 0.0,
-        "all_to_alls": 0, "all_to_all_bytes": 0, "all_to_all_s": 0.0, "staged_bytes": 0}
+        "all_to_alls": 0, "all_to_all_bytes": 0, "all_to_all_s": 0.0, "all_to_all_grad_bytes": 0,
+        "staged_bytes": 0}
 
 
 def reset_comm() -> None:
-    COMM.update(gathers=0, gathered_bytes=0, gather_s=0.0, reduces=0, reduced_bytes=0, reduce_s=0.0,
-                all_to_alls=0, all_to_all_bytes=0, all_to_all_s=0.0, staged_bytes=0)
+    COMM.update({k: type(v)() for k, v in COMM.items()})
 
 
 def _world() -> tuple[int, int]:

@@ -21,12 +21,12 @@ collectives GSPMD inserts into the reference's programs are written out
 columns) with sessions over the batch axes; ``retrieval_cand`` runs one
 ``flash_scan`` per rank over its rows of the candidate codes. A GNN step
 shards the edges over the batch axes and ``"model"`` and replicates the
-nodes (``shard_graph``). The LM prefill and decode cells of the GQA models
-are tensor- and expert-parallel over ``"model"`` with the batch over the
-batch axes and the caches' sequence over ``"model"`` (decode below a batch
-of 8: over every axis), as ``transformer.LMShards`` runs them; an LM train
-cell under a mesh is ROADMAP queue 1, item 7.7, an MLA model's cells item
-7.8.
+nodes (``shard_graph``). The LM cells of the GQA models are tensor- and
+expert-parallel over ``"model"`` with the batch over the batch axes, as
+``transformer.LMShards`` runs them: the train cell with both Adam moments
+sharded as the parameters (:func:`lm_state_specs`), the prefill and decode
+cells with the caches' sequence over ``"model"`` (decode below a batch of
+8: over every axis); an MLA model's cells are ROADMAP queue 1, item 7.8.
 
 The FLOPs are the reference's analytic counts: 6·N_active per trained
 token, 2·N_active per prefilled token, a decode step's 2·N_active per
@@ -128,10 +128,10 @@ def lm_opt_cfg(cfg: tfm.TransformerConfig) -> AdamWConfig:
     return AdamWConfig(state_dtype="bf16" if cfg.param_count() > 5e10 else "f32")
 
 
-def lm_loss_fn(cfg: tfm.TransformerConfig):
+def lm_loss_fn(cfg: tfm.TransformerConfig, shards: tfm.LMShards | None = None):
     """(params, batch) -> (loss, metrics): ``lm_loss`` over a batch's
-    ``tokens`` and ``labels``."""
-    return lambda params, batch: tfm.lm_loss(params, cfg, batch["tokens"], batch["labels"])
+    ``tokens`` and ``labels`` (on one rank of a mesh with ``shards``)."""
+    return lambda params, batch: tfm.lm_loss(params, cfg, batch["tokens"], batch["labels"], shards=shards)
 
 
 def lm_train_step(cfg: tfm.TransformerConfig, tc: TrainConfig, *, donate: bool = False):
@@ -161,18 +161,41 @@ def lm_decode_flops(cfg: tfm.TransformerConfig, batch: int, s_max: int) -> float
     return 2.0 * cfg.active_param_count() * batch + attn
 
 
-def lm_train_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec) -> StepBundle:
+def lm_state_specs(cfg: tfm.TransformerConfig) -> tuple:
+    """(parameter specs, optimizer-state specs): ``lm_param_specs`` and both
+    Adam moments sharded as the parameters, the step replicated
+    (``_lm_state_specs``, ``launch/steps.py:97-100``). The moments' dtype
+    is ``lm_opt_cfg``'s (bfloat16 for qwen2-72b)."""
+    pspecs = tfm.lm_param_specs(cfg)
+    return pspecs, AdamWState(step=(), mu=pspecs, nu=pspecs)
+
+
+def lm_train_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec, mesh=None) -> StepBundle:
     """``lm_train_bundle`` (``launch/steps.py:103-137``): (params,
-    opt_state, tokens, labels), ``lm_opt_cfg``'s moments."""
+    opt_state, tokens, labels), ``lm_opt_cfg``'s moments. Under ``mesh``
+    (GQA models): parameters and moments by :func:`lm_state_specs`, tokens
+    and labels by rows over the batch axes (the reference's shardings,
+    ``:117-127``); each rank's loss and gradients, its part of the global
+    batch's (``transformer.lm_loss``), are summed over the batch axes, and
+    the clipping norm is global."""
     b, s = shape.dims["global_batch"], shape.dims["seq_len"]
     opt = lm_opt_cfg(cfg)
     params = _init_meta(tfm.init_lm, cfg)
     tok = _meta((b, s), torch.int32)
-    return StepBundle(
-        f"{cfg.name}:train", _train_fn(lm_loss_fn(cfg), opt, ("tokens", "labels")),
-        (params, adamw_init(params, state_dtype=opt.state_dtype), tok, tok),
-        donate=(0, 1), model_flops=lm_train_flops(cfg, b, s),
-    )
+    args = (params, adamw_init(params, state_dtype=opt.state_dtype), tok, tok)
+    keys = ("tokens", "labels")
+    if mesh is None:
+        return StepBundle(f"{cfg.name}:train", _train_fn(lm_loss_fn(cfg), opt, keys), args, donate=(0, 1),
+                          model_flops=lm_train_flops(cfg, b, s))
+    tfm.require_gqa(cfg, shape.name)
+    ba = batch_axes(mesh)
+    shards = tfm.LMShards(mesh)
+    pspecs, ospecs = lm_state_specs(cfg)
+    rows = shards.rows
+    fn = _train_fn(lm_loss_fn(cfg, shards), opt, keys, mesh=mesh, specs=pspecs,
+                   sync=lambda loss, g: (rows.sum(loss), _sum_leaves(rows, g, [True] * len(tree_leaves(g)))))
+    return StepBundle(f"{cfg.name}:train", fn, args, donate=(0, 1), model_flops=lm_train_flops(cfg, b, s),
+                      in_specs=(pspecs, ospecs, (ba, None), (ba, None)), out_specs=(pspecs, ospecs, None))
 
 
 def fix_axes(spec: tuple, mesh) -> tuple:
@@ -631,9 +654,9 @@ def build_bundle(arch_id: str, shape_name: str, *, reduced: bool = False, cfg_ov
     (``resolve_device``); the caller makes the inputs there. ``mesh``: the
     cell on one rank of a ``launch.mesh.Mesh``, with its shardings (module
     docstring).
-    ``microbatches`` splits BERT4Rec's train step; under a mesh an LM
-    train cell and any cell of an MLA model raise ``NotImplementedError``
-    naming their ROADMAP items (7.7, 7.8)."""
+    ``microbatches`` splits BERT4Rec's train step; under a mesh any cell
+    of an MLA model raises ``NotImplementedError`` naming its ROADMAP item
+    (7.8)."""
     resolve_device(device)
     arch = get_arch(arch_id)
     shape = next(s for s in arch.shapes if s.name == shape_name)
@@ -641,14 +664,8 @@ def build_bundle(arch_id: str, shape_name: str, *, reduced: bool = False, cfg_ov
     if cfg_override:
         cfg = dataclasses.replace(cfg, **cfg_override)
     if arch.family == "lm":
-        if mesh is None:
-            make = {"train": lm_train_bundle, "prefill": lm_prefill_bundle, "decode": lm_decode_bundle}[shape.kind]
-            return make(cfg, shape)
-        tfm.require_gqa(cfg, shape.name)
-        if shape.kind == "train":
-            raise NotImplementedError(f"{arch_id}:{shape_name} under a mesh: LM training across ranks is not "
-                                      "ported (ROADMAP queue 1, item 7.7)")
-        return {"prefill": lm_prefill_bundle, "decode": lm_decode_bundle}[shape.kind](cfg, shape, mesh)
+        make = {"train": lm_train_bundle, "prefill": lm_prefill_bundle, "decode": lm_decode_bundle}[shape.kind]
+        return make(cfg, shape, mesh)
     if arch.family == "gnn":
         return gnn_train_bundle(arch_id, cfg, shape, mesh)
     if arch.family == "recsys":

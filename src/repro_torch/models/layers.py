@@ -195,6 +195,26 @@ def vocab_lookup(table: torch.Tensor, ids: torch.Tensor, tp=None) -> torch.Tenso
     return tp.reduce_from(torch.where(own[..., None], rows, 0.0))
 
 
+def vocab_log_prob(logits: torch.Tensor, ids: torch.Tensor, tp=None) -> torch.Tensor:
+    """log softmax(logits)[ids] along the last dim, float32. Over ``tp``
+    (a vocabulary-parallel head: ``logits`` is this rank's block of the
+    vocabulary) the logits are never gathered: the shift is the maximum
+    over every block (no gradient: the softmax does not depend on it), and
+    the sum of exponentials and the target's logit (from the rank that owns
+    it) are summed across the blocks with ``reduce_from``, so the result
+    is whole on every rank and each rank's backward reaches its own
+    block."""
+    ids = ids.long()
+    if tp is None or tp.size == 1:
+        return torch.log_softmax(logits, dim=-1).gather(-1, ids[..., None])[..., 0]
+    z = logits - tp.max(logits.detach().amax(-1, keepdim=True))
+    lse = torch.log(tp.reduce_from(torch.exp(z).sum(-1)))
+    local = ids - tp.index * logits.shape[-1]
+    own = (local >= 0) & (local < logits.shape[-1])
+    target = z.gather(-1, torch.where(own, local, 0)[..., None])[..., 0]
+    return tp.reduce_from(torch.where(own, target, 0.0)) - lse
+
+
 def _heads_on(tp, n_heads: int, n_kv: int) -> tuple[int, bool]:
     """(query heads a rank of ``tp`` holds, whether its k/v columns are
     whole heads). Query heads that do not divide raise ``ValueError``."""
@@ -205,12 +225,46 @@ def _heads_on(tp, n_heads: int, n_kv: int) -> tuple[int, bool]:
 
 def _gather_columns(tp, *ts: torch.Tensor) -> list[torch.Tensor]:
     """Each of ``ts`` (…, this rank's columns) with every rank's columns in
-    shard order (…, all of them): one all-gather for all of them."""
+    shard order (…, all of them): one all-gather for all of them. Each
+    rank goes on with its own heads' part of the result, so the gather's
+    backward sums the gradient over ``tp`` before taking this rank's
+    columns (``MeshAxes.gather(per_rank=True)``)."""
     if tp.size == 1:
         return list(ts)
     widths = [t.shape[-1] for t in ts]
-    parts = [part.split(widths, -1) for part in tp.mesh.all_gather(torch.cat(ts, -1).contiguous(), tp.axes)]
-    return [torch.cat([part[i] for part in parts], -1) for i in range(len(ts))]
+    lead = ts[0].shape[:-1]
+    whole = tp.gather(torch.cat(ts, -1), -1, per_rank=True).reshape(*lead, tp.size, sum(widths))
+    return [part.reshape(*lead, tp.size * w) for part, w in zip(whole.split(widths, -1), widths)]
+
+
+def _heads(p: dict, x: torch.Tensor, positions: torch.Tensor, n_heads: int, n_kv: int, head_dim: int,
+           rope_theta: float, tp):
+    """Attention's inputs on one rank of ``tp`` (None: every head): (q of
+    this rank's query heads, k and v of the Kv heads they read, the cache
+    contents (k, v)), each (B, S, heads, hd), q and k rotated. Where the
+    Kv heads divide over the ranks a rank holds whole heads and the cache
+    contents are its Kv / ranks heads. Where they do not, a rank's columns
+    of ``wk``/``wv`` split a head: the k/v projections are gathered over
+    ``tp`` before RoPE, each query head reads its Kv head from the whole,
+    and the cache contents hold every head."""
+    if tp is None or tp.size == 1:
+        q, k, v = _qkv(p, x, positions, n_heads, n_kv, head_dim, rope_theta)
+        return q, k, v, (k, v)
+    h_loc, whole = _heads_on(tp, n_heads, n_kv)
+    if whole:
+        q, k, v = _qkv(p, x, positions, h_loc, n_kv // tp.size, head_dim, rope_theta)
+        return q, k, v, (k, v)
+    b, s, _ = x.shape
+    q, k, v = matmul(x, p["wq"]), matmul(x, p["wk"]), matmul(x, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    k, v = _gather_columns(tp, k, v)
+    q = apply_rope(q.reshape(b, s, h_loc, head_dim), positions, rope_theta)
+    k = apply_rope(k.reshape(b, s, n_kv, head_dim), positions, rope_theta)
+    v = v.reshape(b, s, n_kv, head_dim)
+    # the Kv head each of this rank's query heads reads
+    kv_of = (tp.index * h_loc + torch.arange(h_loc, device=x.device)) // (n_heads // n_kv)
+    return q, k[:, :, kv_of], v[:, :, kv_of], (k, v)
 
 
 def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
@@ -224,48 +278,27 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: i
     its ranks: ``p`` holds this rank's column block of ``wq``/``wk``/``wv``
     (and the biases), its heads, and the matching row block of ``wo``; the
     input enters through ``copy_to`` and the partial outputs leave through
-    ``reduce_from``. ``n_heads`` and ``n_kv`` are the whole model's."""
+    ``reduce_from``. Kv heads that do not divide over the ranks are
+    gathered before RoPE (:func:`_heads`). ``n_heads`` and ``n_kv`` are
+    the whole model's."""
+    return _attention(p, x, positions, n_heads, n_kv, head_dim, rope_theta, block_q, causal, tp)[0]
+
+
+def _attention(p, x, positions, n_heads, n_kv, head_dim, rope_theta, block_q, causal, tp):
+    """(out, cache contents) of :func:`gqa_forward` and :func:`gqa_prefill`."""
     b, s, _ = x.shape
-    if tp is not None:
-        x, n_heads, n_kv = tp.copy_to(x), n_heads // tp.size, n_kv // tp.size
-    q, k, v = _qkv(p, x, positions, n_heads, n_kv, head_dim, rope_theta)
-    out = attend(q, k, v, causal=causal, block_q=block_q)
-    out = matmul(out.reshape(b, s, n_heads * head_dim), p["wo"])
-    return out if tp is None else reduce_partial(tp, out)
+    q, k, v, kv = _heads(p, x if tp is None else tp.copy_to(x), positions, n_heads, n_kv, head_dim, rope_theta, tp)
+    out = matmul(attend(q, k, v, causal=causal, block_q=block_q).reshape(b, s, -1), p["wo"])
+    return (out if tp is None else reduce_partial(tp, out)), kv
 
 
 def gqa_prefill(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
                 rope_theta: float, block_q: int | None = None, tp=None):
     """Causal ``gqa_forward`` that also returns the cache contents: (out
-    (B, S, D), (k, v) each (B, S, Kv, hd), k rotated).
-
-    ``tp`` splits the heads as ``gqa_forward``'s does, and k, v are this
-    rank's Kv / ranks heads. Where Kv does not divide over the ranks, a
-    rank's columns of ``wk``/``wv`` split a head: the k/v projections are
-    then gathered over ``tp`` before RoPE, each rank attends with the Kv
-    heads its query heads read, and k, v hold every head."""
-    b, s, _ = x.shape
-    if tp is None or tp.size == 1:
-        q, k, v = _qkv(p, x, positions, n_heads, n_kv, head_dim, rope_theta)
-        out = attend(q, k, v, block_q=block_q)
-        return matmul(out.reshape(b, s, n_heads * head_dim), p["wo"]), (k, v)
-    h_loc, whole = _heads_on(tp, n_heads, n_kv)
-    if whole:
-        q, k, v = _qkv(p, x, positions, h_loc, n_kv // tp.size, head_dim, rope_theta)
-        out = attend(q, k, v, block_q=block_q)
-    else:
-        q, k, v = matmul(x, p["wq"]), matmul(x, p["wk"]), matmul(x, p["wv"])
-        if "bq" in p:
-            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-        k, v = _gather_columns(tp, k, v)
-        q = apply_rope(q.reshape(b, s, h_loc, head_dim), positions, rope_theta)
-        k = apply_rope(k.reshape(b, s, n_kv, head_dim), positions, rope_theta)
-        v = v.reshape(b, s, n_kv, head_dim)
-        # the Kv head each of this rank's query heads reads
-        kv_of = (tp.index * h_loc + torch.arange(h_loc, device=x.device)) // (n_heads // n_kv)
-        out = attend(q, k[:, :, kv_of], v[:, :, kv_of], block_q=block_q)
-    out = matmul(out.reshape(b, s, h_loc * head_dim), p["wo"])
-    return reduce_partial(tp, out), (k, v)
+    (B, S, D), (k, v) each (B, S, Kv, hd), k rotated). Over ``tp``, k and v
+    are this rank's Kv / ranks heads, or every head where the Kv heads do
+    not divide over the ranks (:func:`_heads`)."""
+    return _attention(p, x, positions, n_heads, n_kv, head_dim, rope_theta, block_q, True, tp)
 
 
 def decode_position(pos, device) -> torch.Tensor:

@@ -23,10 +23,25 @@ holds its experts' shard of ``wg``/``wu``/``wd`` (E / ep of them, by
 ``lm_param_specs``), the router whole and the shared experts by hidden
 columns. Scatter and einsum then run at the global capacity over every
 token this rank's group holds, each rank filling only its own experts'
-buffers; the partial outputs are summed over ``"model"``. The aux losses
-are those of the tokens a rank routed (serving reads none; summing them
-over the token shards comes with LM training across ranks, ROADMAP queue
-1, item 7.7).
+buffers; the partial outputs are summed over ``"model"``.
+
+With ``global_aux`` (training) the aux losses are the reference's over
+every token of the mesh, whose GSPMD program routes them all before it
+dispatches: a rank routes its own tokens, and the ingredients, not the
+products, are summed over the axes that split the tokens (every axis in
+the ep branch, ``token_axes`` in the fallback): the assignment counts with
+no gradient, the probabilities' and the squared log-sum-exps' sums with
+``reduce_from`` (one all-reduce a layer). Without it (serving, which reads
+no aux) they are those of the tokens a rank routed.
+
+For gradients (LM training across ranks), replicated state that meets a
+rank's own share of the work enters through ``copy_to``: in the ep branch
+the router and the block of tokens a rank takes its chunk from (over the
+axes that replicate the block), in the fallback the tokens and their
+combine weights (over ``"model"``, each rank running its own experts). The
+ep branch's chunks are gathered back with the gather whose backward takes
+a rank's own block (``MeshAxes.gather``), and its exchanges send the
+gradients back (``MeshAxes.all_to_all``).
 
 Routing: softmax gating, or deepseek-v3's sigmoid gating with the top-k
 weights normalized. Aux losses: the Switch load balance and the router z.
@@ -89,9 +104,14 @@ def init_moe(gen: torch.Generator, *, d_model: int, cfg: MoEConfig, device="cuda
     return p
 
 
-def _route(p: dict, flat: torch.Tensor, cfg: MoEConfig):
+def _route(p: dict, flat: torch.Tensor, cfg: MoEConfig, toks: MeshAxes | None = None):
     """(weights (N, k) in ``flat.dtype``, expert ids (N, k) int64, aux
-    losses {"load_balance", "router_z"} as 0-dim float32 tensors)."""
+    losses {"load_balance", "router_z"} as 0-dim float32 tensors). With
+    ``toks`` (the axes that split the tokens, ``flat`` being this rank's)
+    the aux losses are over every token of the group: the counts, the
+    probabilities' sums and the squared log-sum-exps' sum are summed over
+    it in one all-reduce (``reduce_from``: the counts carry no gradient,
+    the sums pass theirs back to this rank's tokens)."""
     logits = flat.to(torch.float32) @ p["router"].to(torch.float32)
     if cfg.router == "sigmoid":
         scores = torch.sigmoid(logits)
@@ -102,9 +122,16 @@ def _route(p: dict, flat: torch.Tensor, cfg: MoEConfig):
         w, idx = topk_first(probs, cfg.top_k)
     w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
     e = cfg.n_experts
-    f_e = F.one_hot(idx, e).to(torch.float32).sum(1).mean(0)
-    lb = e * (f_e * probs.mean(0)).sum()
-    z = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    one_hot = F.one_hot(idx, e).to(torch.float32)
+    lse2 = torch.logsumexp(logits, dim=-1) ** 2
+    if toks is None or toks.size == 1:
+        lb = e * (one_hot.sum(1).mean(0) * probs.mean(0)).sum()
+        z = lse2.mean()
+    else:
+        n = flat.shape[0] * toks.size
+        sums = toks.reduce_from(torch.cat([one_hot.sum((0, 1)), probs.sum(0), lse2.sum()[None]]))
+        lb = e * ((sums[:e] / n) * (sums[e:2 * e] / n)).sum()
+        z = sums[2 * e] / n
     return w.to(flat.dtype), idx, {"load_balance": lb, "router_z": z}
 
 
@@ -215,11 +242,12 @@ def _dispatch_ep(flat, w, idx, p, cfg: MoEConfig, c_dev: int, ep: MeshAxes) -> t
     return _combine(ye, slot, keep, w, n, k, flat.dtype)
 
 
-def _moe_on_mesh(p: dict, flat: torch.Tensor, cfg: MoEConfig, mesh, token_axes: tuple):
+def _moe_on_mesh(p: dict, flat: torch.Tensor, cfg: MoEConfig, mesh, token_axes: tuple, global_aux: bool):
     """The dispatch on one rank of ``mesh``: ``flat`` is the block of the
     tokens that this rank's group along ``token_axes`` holds (every token
     where there are none), replicated over the other axes; ``p`` holds
-    this rank's experts. Returns (this block's output, aux losses)."""
+    this rank's experts. Returns (this block's output, aux losses: over
+    every token with ``global_aux``, else over this rank's)."""
     ep = MeshAxes(mesh, cfg.ep_axis)
     e_loc = cfg.n_experts // ep.size
     if cfg.n_experts % ep.size or p["wg"].shape[0] != e_loc:
@@ -234,37 +262,40 @@ def _moe_on_mesh(p: dict, flat: torch.Tensor, cfg: MoEConfig, mesh, token_axes: 
         # tokens split over every axis in axis order: this rank's chunk is
         # its position along the axes that replicate the block
         n_loc = n // n_dev
-        mine = flat[rest.index * n_loc:(rest.index + 1) * n_loc]
-        w, idx, aux = _route(p, mine, cfg)
+        mine = rest.copy_to(flat)[rest.index * n_loc:(rest.index + 1) * n_loc]
+        every = MeshAxes(mesh, mesh.axis_names if global_aux else ())
+        w, idx, aux = _route({"router": rest.copy_to(p["router"])}, mine, cfg, every)
         c_loc = max(int(math.ceil(n_loc * cfg.top_k / cfg.n_experts * cfg.capacity_factor)), 1)
         c_loc = -(-c_loc // ep.size) * ep.size  # a multiple of ep for the exchange's split
         return rest.gather(_dispatch_ep(mine, w, idx, p, cfg, c_loc, ep), 0), aux
     # the global capacity-scatter: the assignments of the blocks before this
     # one arrive first at every expert
-    w, idx, aux = _route(p, flat, cfg)
+    w, idx, aux = _route(p, flat, cfg, toks if global_aux else None)
     offset = None
     if toks.size > 1:
         counts = toks.gather(torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)[None], 0)
         offset = counts[:toks.index].sum(0)
     dispatch = {"scatter": _dispatch_scatter, "ep": _dispatch_scatter, "einsum": _dispatch_einsum}[cfg.impl]
-    out = dispatch(flat, w, idx, p, cfg, _capacity(n, cfg), offset, ep.index * e_loc)
+    out = dispatch(ep.copy_to(flat), ep.copy_to(w), idx, p, cfg, _capacity(n, cfg), offset, ep.index * e_loc)
     if ep.size > 1:
         out = ep.reduce_from(out.to(torch.float32)).to(flat.dtype)
     return out, aux
 
 
-def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig, *, mesh=None, token_axes: tuple = ()):
+def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig, *, mesh=None, token_axes: tuple = (),
+                global_aux: bool = False):
     """x (B, S, D) -> (out (B, S, D), aux losses). ``mesh`` (default: the
     ambient one): a mesh with ``cfg.ep_axis`` puts the dispatch across its
     ranks (module docstring), ``x`` being the tokens this rank's group
-    along ``token_axes`` (leading axes of the mesh) holds."""
+    along ``token_axes`` (leading axes of the mesh) holds; ``global_aux``
+    makes the aux losses those of every token there."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     mesh = get_current_mesh() if mesh is None else mesh
     if cfg.impl not in ("scatter", "einsum", "ep"):
         raise ValueError(f"unknown moe impl {cfg.impl!r}")
     if mesh is not None and cfg.ep_axis in mesh.shape:
-        out, aux = _moe_on_mesh(p, flat, cfg, mesh, tuple(token_axes))
+        out, aux = _moe_on_mesh(p, flat, cfg, mesh, tuple(token_axes), global_aux)
         tp = MeshAxes(mesh, "model")
     else:
         w, idx, aux = _route(p, flat, cfg)

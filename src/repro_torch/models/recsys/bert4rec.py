@@ -138,20 +138,6 @@ def bert4rec_encode(p: dict, cfg: Bert4RecConfig, items: torch.Tensor, tp=None) 
     return _encode(p, _unstack(p, cfg), cfg, items, tp)
 
 
-def _target_log_prob(logits: torch.Tensor, ids: torch.Tensor, tp) -> torch.Tensor:
-    """log softmax(logits)[ids] where ``logits`` is this rank's vocabulary
-    shard over ``tp``: the shift is the maximum over every shard (no
-    gradient: the softmax does not depend on it), the sum of exponentials
-    and the target's logit (from the rank that owns it) are summed across
-    the shards."""
-    z = logits - tp.max(logits.detach().amax(-1, keepdim=True))
-    lse = torch.log(tp.reduce_from(torch.exp(z).sum(-1)))
-    local = ids - tp.index * logits.shape[-1]
-    own = (local >= 0) & (local < logits.shape[-1])
-    target = z.gather(-1, torch.where(own, local, 0)[..., None])[..., 0]
-    return tp.reduce_from(torch.where(own, target, 0.0)) - lse
-
-
 def bert4rec_loss(p: dict, cfg: Bert4RecConfig, items: torch.Tensor, mask_positions: torch.Tensor, *,
                   tp=None, batch=None) -> torch.Tensor:
     """Cloze loss over the parameter tree ``p``: items (B, S); the positions
@@ -170,10 +156,7 @@ def bert4rec_loss(p: dict, cfg: Bert4RecConfig, items: torch.Tensor, mask_positi
     masked = torch.where(mask_positions, cfg.mask_id, items)
     h = bert4rec_encode(p, cfg, masked, tp)  # (B, S, D)
     logits = _logits(p, h.to(torch.float32), tp)  # (B, S, V+1), or its vocabulary shard
-    if tp is None or tp.size == 1:
-        ll = torch.log_softmax(logits, dim=-1).gather(-1, items[..., None])[..., 0]
-    else:
-        ll = _target_log_prob(logits, items, tp)
+    ll = L.vocab_log_prob(logits, items, tp)
     m = mask_positions.to(torch.float32)
     count = torch.sum(m) if batch is None else batch.sum(torch.sum(m))
     return -torch.sum(ll * m) / torch.clamp_min(count, 1.0)

@@ -30,15 +30,17 @@ the same tensors (the reference's jitted step donates them).
 
 Across ranks: :func:`lm_param_specs` and :func:`cache_specs` are the
 reference's shardings (per dim None, an axis name or a tuple of names).
-``lm_prefill`` and ``lm_decode_step`` take ``shards`` (an
+``lm_loss``, ``lm_prefill`` and ``lm_decode_step`` take ``shards`` (an
 :class:`LMShards`) to run on one rank of a mesh over the shards those
-specs give it, computing what the reference's GSPMD program computes: the
-vocabulary split over ``"model"`` (the embedding looked up by the rows'
-owners, the head's logits by columns, gathered whole), attention by heads
-(the prefill's caches turned into sequence chunks by one ``all_to_all``;
-decode as flash-decoding over the cache's sequence chunks), the MLP by
-hidden columns and the MoE expert-parallel (``moe.py``). MLA models under
-a mesh are ROADMAP queue 1, item 7.8.
+specs give it, computing what the reference's GSPMD program computes, its
+gradients included: the vocabulary split over ``"model"`` (the embedding
+looked up by the rows' owners; the head's logits by columns, gathered
+whole for serving and never gathered by the loss, a vocabulary-parallel
+log-softmax), attention by heads (the prefill's caches turned into
+sequence chunks by one ``all_to_all``; decode as flash-decoding over the
+cache's sequence chunks), the MLP by hidden columns and the MoE
+expert-parallel (``moe.py``, its aux losses over every token). MLA models
+and MTP under a mesh are ROADMAP queue 1, item 7.8.
 """
 
 from __future__ import annotations
@@ -259,8 +261,8 @@ def cache_specs(cfg: TransformerConfig, *, seq_shard: bool) -> dict:
 
 
 class LMShards:
-    """Where one rank of ``mesh`` holds a serving step's tensors, as the
-    reference's prefill and decode bundles shard them: the parameters by
+    """Where one rank of ``mesh`` holds a step's tensors, as the reference's
+    train, prefill and decode bundles shard them: the parameters by
     :func:`lm_param_specs` (``tp``: the ``"model"`` axis), the batch rows
     over the batch axes (``rows``), the caches' sequence over ``"model"``
     (``seq``). ``long_context`` (decode at a batch below 8) puts the
@@ -274,9 +276,10 @@ class LMShards:
 
 
 def require_gqa(cfg: TransformerConfig, what: str) -> None:
-    """Raise for an MLA model, whose serving across ranks is not ported."""
-    if cfg.attn == "mla":
-        raise NotImplementedError(f"{cfg.name}:{what} under a mesh: MLA across ranks is not ported "
+    """Raise for an MLA model, or MTP, whose cells across ranks are not
+    ported."""
+    if cfg.attn == "mla" or cfg.mtp_depth:
+        raise NotImplementedError(f"{cfg.name}:{what} under a mesh: MLA and MTP across ranks are not ported "
                                   "(ROADMAP queue 1, item 7.8)")
 
 
@@ -366,41 +369,59 @@ def _layers(params: Params, cfg: TransformerConfig):
             yield base + i, tree_unflatten(blocks, [views[i] for views in per_leaf]), moe
 
 
-def _ffn(blk: Params, x: torch.Tensor, cfg: TransformerConfig, moe: bool, shards: LMShards | None = None):
+def _ffn(blk: Params, x: torch.Tensor, cfg: TransformerConfig, moe: bool, shards: LMShards | None = None,
+         global_aux: bool = False):
+    """The block's second half: (x out, the MoE aux losses, over every
+    token of the mesh with ``global_aux``)."""
     h = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
     if not moe:
         return x + L.mlp_forward(blk["ffn"], h, None if shards is None else shards.tp), {}
-    on_mesh = {} if shards is None else {"mesh": shards.mesh, "token_axes": shards.rows.axes}
+    on_mesh = {} if shards is None else {"mesh": shards.mesh, "token_axes": shards.rows.axes,
+                                         "global_aux": global_aux}
     f, aux = moe_forward(blk["ffn"], h, cfg.moe, **on_mesh)
     return x + f, aux
 
 
-def _attn_forward(blk: Params, h: torch.Tensor, positions: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+def _attn_forward(blk: Params, h: torch.Tensor, positions: torch.Tensor, cfg: TransformerConfig,
+                  shards: LMShards | None = None) -> torch.Tensor:
     if cfg.attn == "mla":
         return L.mla_forward(blk["attn"], h, positions, n_heads=cfg.n_heads, qk_nope_dim=cfg.qk_nope_dim,
                              qk_rope_dim=cfg.qk_rope_dim, v_head_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta,
                              block_q=cfg.block_q)
     return L.gqa_forward(blk["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                         head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, block_q=cfg.block_q)
+                         head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, block_q=cfg.block_q,
+                         tp=None if shards is None else shards.tp)
 
 
-def _block_forward(blk: Params, x: torch.Tensor, positions: torch.Tensor, cfg: TransformerConfig, moe: bool):
+def _block_forward(blk: Params, x: torch.Tensor, positions: torch.Tensor, cfg: TransformerConfig, moe: bool,
+                   shards: LMShards | None = None):
     """One block over its stored weights (rounded here, so a rematerialised
-    block keeps no rounded copy): (x out, aux)."""
+    block keeps no rounded copy): (x out, aux). ``shards``: this rank's
+    shards of it on a mesh."""
     blk = _cast_block(blk, cfg.dtype)
-    x = x + _attn_forward(blk, L.rms_norm(x, blk["ln1"], cfg.norm_eps), positions, cfg)
-    return _ffn(blk, x, cfg, moe)
+    x = x + _attn_forward(blk, L.rms_norm(x, blk["ln1"], cfg.norm_eps), positions, cfg, shards)
+    return _ffn(blk, x, cfg, moe, shards, global_aux=True)
 
 
-def _block_remat(blk: Params, x: torch.Tensor, positions: torch.Tensor, cfg: TransformerConfig, moe: bool):
+def _block_remat(blk: Params, x: torch.Tensor, positions: torch.Tensor, cfg: TransformerConfig, moe: bool,
+                 shards: LMShards | None = None):
     """``_block_forward``, rematerialised in the backward where ``cfg.remat``
     (the reference's ``jax.checkpoint`` per scanned block): only the
     block's input is kept. The blocks draw no random numbers, and the MoE
-    routing (``topk_first``, a stable sort) recomputes to the same ids."""
+    routing (``topk_first``, a stable sort) recomputes to the same ids.
+
+    Under a mesh the recomputation re-issues the block's forward
+    collectives inside the backward. That is sound only because every rank
+    recomputes the same blocks in the same order (one program; the
+    backward visits the blocks in reverse, and where the recomputation
+    stops early, once the tensors the backward needs are back, every rank
+    stops at the same tensor) and routes to the same ids as its forward
+    did, so the recomputed exchanges pair up and carry the forward's
+    buffers."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(_block_forward, blk, x, positions, cfg, moe, use_reentrant=False,
+        return checkpoint(_block_forward, blk, x, positions, cfg, moe, shards, use_reentrant=False,
                           preserve_rng_state=False)
-    return _block_forward(blk, x, positions, cfg, moe)
+    return _block_forward(blk, x, positions, cfg, moe, shards)
 
 
 def _embed(params: Params, cfg: TransformerConfig, tokens: torch.Tensor, shards: LMShards | None = None):
@@ -409,24 +430,32 @@ def _embed(params: Params, cfg: TransformerConfig, tokens: torch.Tensor, shards:
     return x, torch.arange(s, device=tokens.device).expand(b, s)
 
 
+def _head(params: Params, cfg: TransformerConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Float32 logits of the hidden ``x``; over ``tp``, this rank's block of
+    the vocabulary (``x`` entering through ``copy_to``)."""
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    if tp is not None:
+        x = tp.copy_to(x)
+    return L.matmul(x, params["head"].to(cfg.dtype)).to(torch.float32)
+
+
 def _logits(params: Params, cfg: TransformerConfig, x: torch.Tensor, shards: LMShards | None = None) -> torch.Tensor:
     """Float32 logits; across ranks the head's column shards are gathered
     over ``"model"`` and the rows over the batch axes: every rank returns
     the whole (B, V), as the reference's replicated output."""
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    out = L.matmul(x, params["head"].to(cfg.dtype)).to(torch.float32)
+    out = _head(params, cfg, x, None if shards is None else shards.tp)
     return out if shards is None else shards.rows.gather(shards.tp.gather(out, -1), 0)
 
 
-def _trunk(params: Params, cfg: TransformerConfig, tokens: torch.Tensor):
+def _trunk(params: Params, cfg: TransformerConfig, tokens: torch.Tensor, shards: LMShards | None = None):
     """Embedding and every block: (hidden before ``ln_f`` (B, S, D), aux).
     aux holds each MoE loss averaged over the MoE layers, as
     ``moe/load_balance`` and ``moe/router_z`` (the reference's names; its
-    dense blocks add none)."""
-    x, positions = _embed(params, cfg, tokens)
+    dense blocks add none). ``shards``: this rank's rows and shards."""
+    x, positions = _embed(params, cfg, tokens, shards)
     auxs: dict[str, list] = {}
     for _, blk, moe in _layers(params, cfg):
-        x, aux = _block_remat(blk, x, positions, cfg, moe)
+        x, aux = _block_remat(blk, x, positions, cfg, moe, shards)
         for k, v in aux.items():
             auxs.setdefault(f"moe/{k}", []).append(v)
     return x, {k: torch.stack(v).mean() for k, v in auxs.items()}
@@ -438,32 +467,48 @@ def lm_forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor):
     return _logits(params, cfg, h), aux
 
 
-def _token_log_likelihood(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """log softmax(logits)[label] per position, (B, S) float32."""
-    return torch.log_softmax(logits, dim=-1).gather(-1, labels.long()[..., None])[..., 0]
-
-
 def lm_loss(params: Params, cfg: TransformerConfig, tokens: torch.Tensor, labels: torch.Tensor, *,
-            lb_coef: float = 0.01, z_coef: float = 1e-4):
+            lb_coef: float = 0.01, z_coef: float = 1e-4, shards: LMShards | None = None):
     """Next-token cross entropy over the float32 logits, plus the MoE aux
     losses (``lb_coef``·load balance + ``z_coef``·router z) and, with
     ``cfg.mtp_depth``, deepseek-v3's multi-token prediction at weight 0.3:
     one dense block over ``[h_t ; embed(t + 1)] @ mtp_proj`` predicts token
     t + 2 through the shared ``ln_f`` and head, over the positions below
     S − 2 (the last two labels are rolled in from the front). Returns
-    (loss, metrics): ``ce``, the aux, and ``mtp_ce`` with MTP."""
-    h, aux = _trunk(params, cfg, tokens)
-    loss = -_token_log_likelihood(_logits(params, cfg, h), labels).mean()
-    metrics = {"ce": loss, **aux}
+    (loss, metrics): ``ce``, the aux, and ``mtp_ce`` with MTP.
+
+    ``shards``: one rank of a mesh, ``tokens`` and ``labels`` its rows
+    over the batch axes and ``params`` its shards (GQA models without MTP;
+    the rest raise, item 7.8). The loss is this rank's part of the global
+    batch's, which the ranks along the batch axes sum (their gradients
+    too): the CE over this rank's tokens divided by every token of the
+    global batch, over a vocabulary block a rank (the (B, S, V) logits are
+    never gathered), plus this rank's share (``MeshAxes.share``) of the aux
+    losses, which are the global batch's (``moe.py``). The metrics are the
+    global batch's."""
+    if shards is not None:
+        require_gqa(cfg, "train")
+    tp, rows = (None, None) if shards is None else (shards.tp, shards.rows)
+    h, aux = _trunk(params, cfg, tokens, shards)
+    ll = L.vocab_log_prob(_head(params, cfg, h, tp), labels, tp)
+    if rows is None or rows.size == 1:
+        loss = -ll.mean()
+        metrics = {"ce": loss, **aux}
+    else:
+        loss = -ll.sum() / (ll.numel() * rows.size)
+        metrics = {"ce": rows.sum(loss.detach()), **aux}
     if "moe/load_balance" in aux:
-        loss = loss + lb_coef * aux["moe/load_balance"] + z_coef * aux["moe/router_z"]
+        if rows is None or rows.size == 1:
+            loss = loss + lb_coef * aux["moe/load_balance"] + z_coef * aux["moe/router_z"]
+        else:
+            loss = loss + rows.share(lb_coef * aux["moe/load_balance"] + z_coef * aux["moe/router_z"])
     if cfg.mtp_depth:
         b, s = tokens.shape
         nxt = params["embed"][torch.roll(tokens, -1, dims=1)].to(cfg.dtype)
         mtp_in = L.matmul(torch.cat([h, nxt], dim=-1), params["mtp_proj"].to(cfg.dtype))
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         mtp_h, _ = _block_remat(params["mtp_block"], mtp_in, positions, cfg, False)
-        ll2 = _token_log_likelihood(_logits(params, cfg, mtp_h), torch.roll(labels, -1, dims=1))
+        ll2 = L.vocab_log_prob(_head(params, cfg, mtp_h), torch.roll(labels, -1, dims=1))
         mask = torch.arange(s, device=tokens.device) < s - 2
         mtp_loss = -(ll2 * mask).sum() / max(max(s - 2, 0) * b, 1)
         loss = loss + 0.3 * mtp_loss

@@ -83,6 +83,8 @@ def _same(a, b) -> bool:
         return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
     if isinstance(a, (list, tuple)):
         return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if a is None or b is None:  # an absent subtree (a dense model's blocks_moe)
+        return a is b
     return torch.equal(a, b)
 
 

@@ -1122,3 +1122,55 @@ def test_cuda_lm_cells_across_ranks_equal_one_process(cuda_device, tmp_path):
                     assert not ((logits.argmax(-1) != w_logits.argmax(-1)) & ~tie).any(), label
                     for k, w in w_caches.items():
                         assert float(np.abs(caches[k] - w).max()) <= 1e-4 * float(np.abs(w).max()), (label, k)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_train_across_ranks_equals_one_process(cuda_device, tmp_path):
+    """The LM train cell (``launch/steps.lm_train_bundle`` under a mesh;
+    ``tests/_mesh_lm_train_ranks.py``: 2 steps of B 8 × S 8) in float32 at
+    depth 2 (the reduced qwen1.5, qwen2 with Kv 1 and llama with 6 heads and
+    Kv 3) and the reduced moonshot with ``impl="ep"`` at capacity factor 4.0
+    (no assignment drops, so the ep branch computes what one process does)
+    with remat, on two ranks sharing the card over ``gloo``, on (1, 2) and
+    (2, 1) meshes, against the one-process steps on the card from one set of
+    weights and batches: every step's loss, ``ce``, the aux losses and
+    ``grad_norm`` within 1e-5 relative, every parameter and moment within
+    1e-4 of its tensor's largest magnitude (parameters 2·steps·lr more; a
+    bfloat16 parameter's within a bfloat16 step, its second moment two)."""
+    import _mesh_lm_train_ranks as mtr
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils import tree_paths
+
+    cases = {"moonshot-ep": ("moonshot-v1-16b-a3b", {"moe": {"impl": "ep", "capacity_factor": 4.0}, "remat": True}),
+             "qwen1.5": ("qwen1.5-0.5b", {}), "qwen2-kv1": ("qwen2-72b", {}),
+             "llama-kv3": ("llama3.2-3b", {"n_heads": 6, "n_kv_heads": 3})}
+
+    def make():
+        out = {}
+        for i, (case, (arch, override)) in enumerate(cases.items()):
+            cfg = mtr.lm_config(arch, override)
+            rng = np.random.default_rng(i)
+            out[case] = {"arch": arch, "override": override,
+                         "params": tfm.params_to_jax(tfm.init_lm(torch.Generator().manual_seed(i), cfg, device="cpu")),
+                         "batches": [tuple(rng.integers(0, cfg.vocab, (mtr.B, mtr.S)).astype(np.int32)
+                                           for _ in range(2)) for _ in range(mtr.STEPS)]}
+        return {"cases": out}
+
+    out = run_ranks(mtr.train_cells, 2, _card_inputs(tmp_path, make), device="cuda", timeout=300)
+    for case in cases:
+        want = out[0]["one_process"][case]
+        lr = max(s["lr"] for s in want["steps"])
+        for rank in out:
+            for name, runs in rank["meshes"].items():
+                got, label = runs[case], f"{case} rank {rank['rank']} {name}"
+                for g, w in zip(got["steps"], want["steps"]):
+                    for k in ("loss", "ce", "moe/load_balance", "moe/router_z", "grad_norm"):
+                        if k in w:
+                            np.testing.assert_allclose(g[k], w[k], rtol=1e-5, err_msg=f"{label}: {k}")
+                for tree, extra, n in (("params", 2 * mtr.STEPS * lr, 1), ("mu", 0.0, 1), ("nu", 0.0, 2)):
+                    wanted = dict(tree_paths(want[tree]))
+                    for path, a in tree_paths(got[tree]):
+                        w = np.asarray(wanted[path], np.float64)
+                        rel = n * 2.0 ** -7 if case == "qwen2-kv1" else 1e-4  # the reduced qwen2 stores bfloat16
+                        assert float(np.abs(a - w).max()) <= rel * float(np.abs(w).max()) + extra, (label, tree, path)

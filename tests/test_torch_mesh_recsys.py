@@ -25,8 +25,8 @@ on the CPU.
   parameter within that plus 2·lr.
 * A (1, 1) mesh gives the one-process cells bit for bit (on rank 0).
 * Specs that do not divide raise ``ValueError``; the LM cells still
-  outside the mesh (a train cell, an MLA model's cells) raise
-  ``NotImplementedError`` naming their ROADMAP items; the specs are the
+  outside the mesh (an MLA model's, its train cell too) raise
+  ``NotImplementedError`` naming their ROADMAP item; the specs are the
   reference's ``_b4r_specs``.
 """
 
@@ -223,9 +223,8 @@ def test_specs_that_do_not_divide_raise():
         reshard_for_mesh(torch.zeros(1000, 16, dtype=torch.int32), ("model", None), mesh)
 
 
-#: the LM cells that still raise under a mesh: training across ranks (item
-#: 7.7) and the MLA model (item 7.8)
-LM_RAISES = {"train_4k": ("qwen1.5-0.5b", "item 7.7"), "prefill_32k": ("deepseek-v3-671b", "item 7.8"),
+#: the LM cells that still raise under a mesh: the MLA model's (item 7.8)
+LM_RAISES = {"train_4k": ("deepseek-v3-671b", "item 7.8"), "prefill_32k": ("deepseek-v3-671b", "item 7.8"),
              "decode_32k": ("deepseek-v3-671b", "item 7.8")}
 
 
